@@ -1,0 +1,213 @@
+"""Command-line driver of the PyTorch/CUDA port (counterpart of
+:mod:`csa_tpu.cli`).
+
+========  ==========================================================
+mode      behavior
+========  ==========================================================
+(none)    Rotate + Align + Images (full pipeline)
+R         Rotation only -> ``<base>-Rotated.fasta`` + block artifacts
+A         Alignment only (rotations = 0) -> ``<base>-Aligned.fasta``
+I         Circular alignment plot only
+C         Clean/normalize a FASTA file -> ``Clean-<file>``
+S         Sum-of-pairs score + stats of an alignment
+M         Convert aligned FASTA -> MSF
+========  ==========================================================
+
+Modes N, R and A run on ``--device`` (default ``cuda``); I, C, S and M
+are the JAX package's host tools.  Without a CUDA device,
+``--device cuda`` exits non-zero; the CPU runs only when asked for with
+``--device cpu``.  ``CSA_TPU_TORCH_TRACE=<dir>`` wraps the run in
+``torch.profiler`` and writes ``<dir>/trace.json``.
+
+    python -m csa_tpu_torch.cli Primates.txt
+    python -m csa_tpu_torch.cli R Primates.txt --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+from csa_tpu.cli import (
+    ALIGNMENT_SUFFIX,
+    CIRCULARIMAGE_SUFFIX,
+    ROTATIONS_SUFFIX,
+    _load,
+    output_filename,
+)
+from csa_tpu.console import banner
+from csa_tpu.io import fasta as fio
+from csa_tpu.rotation.chains import INT_MAX
+
+from . import __version__
+from .config import from_jax_config, scoring_kwargs
+
+
+def _resolve_device(name: str):
+    import torch
+
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            "> ERROR: --device cuda but no CUDA device is available "
+            "(use --device cpu to run the plain PyTorch versions on the CPU)"
+        )
+    if dev.type not in ("cpu", "cuda"):
+        raise SystemExit(f"> ERROR: unsupported --device {name}")
+    return dev
+
+
+def run_rotation(args, seqs: fio.SequenceSet):
+    from csa_tpu.report import blocks_report
+
+    from .rotation import pipeline as rot
+    from .utils import PROFILER
+
+    t0 = time.time()
+    try:
+        res = rot.analyze(seqs, device=args.device, pack_w=args.kw["pack_w"],
+                          max_interval=args.kw["max_interval"],
+                          log=sys.stdout)
+    except rot.RotationError as e:
+        raise SystemExit(f"\n> ERROR: {e}")
+    with PROFILER.phase("rot.artifacts"):
+        fio.save_rotated(seqs, res.rotations,
+                         output_filename(args.input, ROTATIONS_SUFFIX))
+        blocks_report.write_blocks_artifacts(
+            args.input, seqs, res,
+            min_block_size=args.kw["min_block_size"],
+            max_block_size=args.kw["max_block_size"],
+        )
+    if args.profile:
+        print(f"> [profile] rotation phase: {time.time() - t0:.3f}s "
+              f"(device={args.device})")
+    return res
+
+
+def run_alignment(args, seqs: fio.SequenceSet, rotations) -> str:
+    from csa_tpu.tools import files as tools_files
+
+    from .align import msa
+
+    alignfile = output_filename(args.input, ALIGNMENT_SUFFIX)
+    print("> Running multiple sequence alignment...")
+    result = msa.align(seqs, rotations, device=args.device,
+                       **scoring_kwargs(args.kw))
+    msa.save_alignment(seqs, rotations, result, alignfile)
+    rotfile = output_filename(args.input, ROTATIONS_SUFFIX)
+    source = rotfile if os.path.exists(rotfile) else args.input
+    tools_files.test_alignment_output(source, alignfile)
+    return alignfile
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="csa-tpu-torch",
+        description="Multiple circular sequence aligner (PyTorch/CUDA)",
+    )
+    parser.add_argument("mode", nargs="?", default=None,
+                        help="R|A|I|C|S|M (omit for full pipeline)")
+    parser.add_argument("input", nargs="?", default=None,
+                        help="multi-FASTA file")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device for modes N/R/A (default cuda)")
+    parser.add_argument("--min-block-size", type=int, default=10)
+    parser.add_argument("--max-block-size", type=int, default=INT_MAX)
+    parser.add_argument("--max-interval", type=int, default=INT_MAX)
+    parser.add_argument("--match", type=int, default=1,
+                        help="DP match score (default 1)")
+    parser.add_argument("--mismatch", type=int, default=-1,
+                        help="DP mismatch score (default -1)")
+    parser.add_argument("--indel", type=int, default=-1,
+                        help="DP indel score (default -1)")
+    parser.add_argument("--doublegap", type=int, default=0,
+                        help="DP gap-over-gap score (default 0)")
+    parser.add_argument("--pack-w", type=int, default=None, metavar="W",
+                        choices=range(2, 14),
+                        help="k-mer packing width of the index engine "
+                             "(2..13, default 12)")
+    parser.add_argument("--profile", action="store_true")
+    parser.add_argument("--version", action="version",
+                        version=f"csa-tpu-torch {__version__}")
+    args = parser.parse_args(argv)
+
+    from csa_tpu import config
+
+    defaults = config.RunConfig()
+    cfg = config.RunConfig(
+        scoring=config.Scoring(match=args.match, mismatch=args.mismatch,
+                               indel=args.indel, doublegap=args.doublegap),
+        min_block_size=args.min_block_size,
+        max_block_size=args.max_block_size,
+        max_interval=args.max_interval,
+        pack_w=args.pack_w if args.pack_w is not None else defaults.pack_w,
+    )
+    # the shared host code (merge, DGC, native kernels) reads the
+    # installed config; the port's device code takes its scalars
+    config.set_run_config(cfg)
+    args.kw = from_jax_config(cfg)
+
+    print(banner("[ csa-tpu-torch: Multiple Circular Sequence Aligner ]"))
+
+    from .utils import PROFILER, torch_trace
+
+    PROFILER.enabled = bool(args.profile)
+
+    # reference argument convention: one arg = full pipeline on that
+    # file; two args = mode char + file (csamsa.c:539-547)
+    mode = "N"
+    if args.input is None and args.mode is not None:
+        args.input = args.mode
+    elif args.mode is not None:
+        mode = args.mode.upper()
+        if mode not in ("R", "A", "I", "C", "S", "M"):
+            mode = ""
+    if not args.input or not mode:
+        parser.print_help()
+        return 0
+    if mode in ("N", "R", "A"):
+        args.device = _resolve_device(args.device)
+
+    with torch_trace(os.environ.get("CSA_TPU_TORCH_TRACE")):
+        if mode in ("N", "R", "A"):
+            with PROFILER.phase("io.load_fasta"):
+                seqs = _load(args)
+
+        res = None
+        if mode in ("N", "R"):
+            print("> Building generalized cyclic suffix index...")
+            res = run_rotation(args, seqs)
+
+        alignfile = None
+        if mode in ("N", "A"):
+            import numpy as np
+
+            rotations = (res.rotations if res is not None
+                         else np.zeros(len(seqs), dtype=np.int64))
+            with PROFILER.phase("align.total"):
+                alignfile = run_alignment(args, seqs, rotations)
+
+        if mode in ("N", "I"):
+            from csa_tpu.report import circular_plot
+
+            source = alignfile if alignfile else args.input
+            out = output_filename(args.input, CIRCULARIMAGE_SUFFIX)
+            with PROFILER.phase("report.circular_plot"):
+                circular_plot.draw_circular_alignment_plot(source, out)
+
+    if mode in ("C", "S", "M"):
+        from csa_tpu.tools import files as tools_files
+
+        {"C": tools_files.clean_fasta, "S": tools_files.sum_of_pairs_score,
+         "M": tools_files.fasta_to_msf}[mode](args.input)
+
+    if args.profile:
+        PROFILER.report(sys.stdout)
+    print("> Done!")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

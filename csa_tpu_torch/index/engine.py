@@ -1,0 +1,477 @@
+"""Cyclic suffix-array engine on torch tensors (counterpart of the staged
+single-device path of :mod:`csa_tpu.index.engine`).
+
+The algorithm is the JAX package's, stage for stage, with the same padded
+layout: sequences are padded to ``n_max = _bucket(max len)`` and a
+rotation is the flat index ``g = seq * n_max + pos``, so ``order`` and
+``lcp`` agree element for element with ``csa_tpu.index.engine``.
+
+* packed base-5 keys of the first ``pack_w`` cyclic characters;
+* prefix doubling with group-start ranks, ended as soon as every group
+  is a singleton (the host reads one scalar per level);
+* adjacent-pair LCP by binary descent over the stored rank levels, then a
+  digit-by-digit tail inside the packed window;
+* the collect cascade: PSV/NSV (``pack_w`` threshold scans each way plus a
+  bounded deep descent), all-sequences coverage (k last-occurrence scans
+  reduced by a min), canonical representatives, deepest-node marking;
+  the three multi-channel scans go through :mod:`.mscan`, i.e. the
+  hand-written kernel on a CUDA device;
+* the tail: suffix-containment filter by occurrence-end join, uniqueness
+  and positions, returned as the slim final-block view.
+
+Every other operation is a plain torch op.  XLA needs static shapes, so
+the JAX package pads its block tables to ``cap``/``ecap``/``fcap`` and
+retries on overflow; eager torch sizes them from the data, and the
+outputs are identical.  JAX clamps out-of-range gathers and drops
+out-of-range scatters while torch raises; every index below is in range
+by construction (the comments say why where it is not obvious).
+
+Two-key stable sorts become one stable ``torch.sort`` of an int64 key
+packing both int32 keys (the first key in the high part), which orders
+exactly like ``jax.lax.sort(..., num_keys=2, is_stable=True)``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..utils import PROFILER, sync
+from . import mscan
+
+_ALPHA = 5  # alphabet (ACGT-)
+
+
+def _bucket(n: int, quantum: int = 1024) -> int:
+    return ((n + quantum - 1) // quantum) * quantum
+
+
+def _linear_levels(total: int) -> int:
+    """Level count for the linear suffix sort (plain 1 << t windows)."""
+    t = 1
+    while (1 << (t - 1)) < total:
+        t += 1
+    return t
+
+
+def _pow2_at_least(x: int, floor: int = 1) -> int:
+    v = max(int(x), floor)
+    return 1 << (v - 1).bit_length()
+
+
+def _tdeep_for(mg0: int, k: int, n_max: int) -> int:
+    """Deep-descent level count: 2**tdeep >= max level-0 group size."""
+    return min(
+        _pow2_at_least(mg0, 16).bit_length() - 1,
+        int(np.ceil(np.log2(max(k * n_max, 2)))) + 1,
+    )
+
+
+def _stable_sort2(k1: torch.Tensor, k2: torch.Tensor, span: int):
+    """Stable lexicographic order of (k1, k2), 0 <= k2 < span."""
+    _, order = torch.sort(k1 * span + k2, stable=True)
+    return order
+
+
+def _n_of_flat(lengths: torch.Tensor, n_max: int) -> torch.Tensor:
+    """(N,) per-rotation sequence length (>= 1)."""
+    return lengths.clamp(min=1).repeat_interleave(n_max)
+
+
+def _pack_keys(codes: torch.Tensor, lengths: torch.Tensor, *, n_max: int,
+               pack_w: int) -> torch.Tensor:
+    """Base-5 key of the pack_w-char cyclic window at every position:
+    rolls for the bulk, then the <= pack_w-1 wrap slots per sequence
+    recomputed exactly."""
+    k = codes.shape[0]
+    dev = codes.device
+    acc = torch.zeros_like(codes)
+    for t in range(pack_w):
+        acc = acc * _ALPHA + (torch.roll(codes, -t, dims=1) if t else codes)
+    packed = acc.reshape(-1).clone()
+    n_s = lengths.clamp(min=1)[:, None]
+    j = torch.arange(pack_w - 1, device=dev)[None, :]
+    p = (n_s - (pack_w - 1) + j) % n_s
+    srow = torch.arange(k, device=dev)[:, None] * n_max
+    cflat = codes.reshape(-1)
+    key = torch.zeros_like(p)
+    for t in range(pack_w):
+        key = key * _ALPHA + cflat[srow + (p + t) % n_s]
+    # duplicate slots (sequences shorter than pack_w - 1) get equal keys
+    packed[(srow + p).reshape(-1)] = key.reshape(-1)
+    return packed
+
+
+def _group_stats(newgrp: torch.Tensor, g: torch.Tensor):
+    """Group start per sorted slot, tied-group count and max group size."""
+    n = newgrp.shape[0]
+    start_idx = torch.cummax(torch.where(newgrp, g, 0), 0).values
+    a = torch.where(newgrp, g, n)
+    nxt = torch.cat([torch.cummin(a.flip(0), 0).values.flip(0)[1:],
+                     a.new_full((1,), n)])
+    size = nxt - start_idx
+    return start_idx, int((size > 1).sum()), int(size.max())
+
+
+def _level0(packed, lengths, *, n_max: int, pack_w: int):
+    """Initial sort by packed key; group-start ranks; tie stats."""
+    n_total = packed.shape[0]
+    g = torch.arange(n_total, device=packed.device)
+    valid = (g % n_max) < _n_of_flat(lengths, n_max)
+    key = torch.where(valid, packed, _ALPHA ** pack_w + g)
+    ks, order = torch.sort(key, stable=True)
+    newgrp = torch.cat([ks.new_ones(1, dtype=torch.bool), ks[1:] != ks[:-1]])
+    start_idx, num_tied, max_group = _group_stats(newgrp, g)
+    rank = torch.empty_like(start_idx)
+    rank[order] = start_idx
+    return order, rank, num_tied, max_group
+
+
+def _refine(rank, lengths, h: int, *, n_max: int):
+    """One prefix-doubling level: rank2 gather + 2-key sort + group-start
+    rank rebuild.  Ranks are group starts in [0, N)."""
+    n_total = rank.shape[0]
+    g = torch.arange(n_total, device=rank.device)
+    base = (g // n_max) * n_max
+    r2 = rank[base + (g - base + h) % _n_of_flat(lengths, n_max)]
+    order = _stable_sort2(rank, r2, n_total)
+    r1s, r2s = rank[order], r2[order]
+    newgrp = torch.cat([r1s.new_ones(1, dtype=torch.bool),
+                        (r1s[1:] != r1s[:-1]) | (r2s[1:] != r2s[:-1])])
+    start_idx, num_tied, max_group = _group_stats(newgrp, g)
+    rank_new = torch.empty_like(start_idx)
+    rank_new[order] = start_idx
+    return order, rank_new, num_tied, max_group
+
+
+def _dup_check(order, rank, lengths, *, n_max: int) -> bool:
+    """Same-sequence identical periodic rotations."""
+    rs = rank[order]
+    seq_s = order // n_max
+    valid_s = (order % n_max) < _n_of_flat(lengths, n_max)[order]
+    return bool(((rs[1:] == rs[:-1]) & (seq_s[1:] == seq_s[:-1])
+                 & valid_s[1:]).any())
+
+
+def _lcp_step(off, rank_t, a, b, n_a, n_b, h: int, *, n_max: int):
+    """One binary-descent level of the adjacent-pair LCP."""
+    base_a = (a // n_max) * n_max
+    base_b = (b // n_max) * n_max
+    ga = base_a + (a - base_a + off) % n_a
+    gb = base_b + (b - base_b + off) % n_b
+    return torch.where(rank_t[ga] == rank_t[gb], off + h, off)
+
+
+def _lcp_tail(off, packed, order, lengths, *, n_max: int, pack_w: int):
+    """Sub-pack_w tail: compare the two differing packed windows digit by
+    digit.  Returns the (N,) raw and capped lcp (index i = boundary
+    sa[i-1]/sa[i])."""
+    n_sorted = _n_of_flat(lengths, n_max)[order]
+    valid_s = (order % n_max) < n_sorted
+    a, b = order[:-1], order[1:]
+    n_a, n_b = n_sorted[:-1], n_sorted[1:]
+    base_a = (a // n_max) * n_max
+    base_b = (b // n_max) * n_max
+    ka = packed[base_a + (a - base_a + off) % n_a]
+    kb = packed[base_b + (b - base_b + off) % n_b]
+    still = torch.ones_like(off, dtype=torch.bool)
+    run = torch.zeros_like(off)
+    for i in range(pack_w):
+        sh = _ALPHA ** (pack_w - 1 - i)
+        still = still & ((ka // sh) % _ALPHA == (kb // sh) % _ALPHA)
+        run = run + still.to(run.dtype)
+    raw_pair = torch.where(valid_s[:-1] & valid_s[1:], off + run, 0)
+    zero = off.new_zeros(1)
+    raw = torch.cat([zero, raw_pair])
+    lcp = torch.cat([zero, torch.minimum(raw_pair, torch.minimum(n_a, n_b))])
+    return raw, lcp
+
+
+def _device_build(encoded: Sequence[np.ndarray], device, *, pack_w: int = 12):
+    """Pack + level-0 sort + early-terminated refinement + LCP.
+
+    Returns ``((order, lcp, lengths), (k, n_max, max_group0))`` with
+    tensors on ``device``, or ``(None, None)`` when a sequence has
+    duplicate rotations (periodic input)."""
+    device = torch.device(device)
+    k = len(encoded)
+    sizes = np.array([len(e) for e in encoded], dtype=np.int64)
+    n_max = _bucket(int(sizes.max()))
+    codes = np.zeros((k, n_max), dtype=np.int8)
+    for i, e in enumerate(encoded):
+        codes[i, : len(e)] = e
+    codes_t = torch.from_numpy(codes).to(device).to(torch.int64)
+    lengths = torch.from_numpy(sizes).to(device)
+
+    with PROFILER.phase("idx.pack"):
+        packed = _pack_keys(codes_t, lengths, n_max=n_max, pack_w=pack_w)
+        sync(device)
+    with PROFILER.phase("idx.l0_sort"):
+        order, rank, nt, mg0 = _level0(packed, lengths, n_max=n_max,
+                                       pack_w=pack_w)
+    ranks = [rank]
+    t = 0
+    with PROFILER.phase("idx.refine"):
+        while nt > 0 and (pack_w << t) < n_max:
+            order, rank, nt, _ = _refine(rank, lengths, pack_w << t,
+                                         n_max=n_max)
+            ranks.append(rank)
+            t += 1
+    if nt > 0 and _dup_check(order, rank, lengths, n_max=n_max):
+        return None, None
+
+    with PROFILER.phase("idx.lcp"):
+        a, b = order[:-1], order[1:]
+        n_of = _n_of_flat(lengths, n_max)
+        n_a, n_b = n_of[a], n_of[b]
+        off = torch.zeros_like(a)
+        for tt in range(len(ranks) - 1, -1, -1):
+            off = _lcp_step(off, ranks[tt], a, b, n_a, n_b, pack_w << tt,
+                            n_max=n_max)
+        _raw, lcp = _lcp_tail(off, packed, order, lengths, n_max=n_max,
+                              pack_w=pack_w)
+        sync(device)
+    return (order, lcp, lengths), (k, n_max, mg0)
+
+
+def _collect_front(order, lcp, lengths, *, k: int, n_max: int, tdeep: int,
+                   pack_w: int):
+    """PSV/NSV intervals, all-sequences coverage, canonical
+    representatives and deepest-node marking.  Returns (collected, start,
+    end) over the N sorted boundaries."""
+    n_total = order.shape[0]
+    dev = order.device
+    idx = torch.arange(n_total, device=dev)
+    pos_sorted = order % n_max
+    seq_sorted = order // n_max
+    valid_s = pos_sorted < _n_of_flat(lengths, n_max)[order]
+
+    # PSV/NSV for lcp in [1, pack_w]: one threshold scan per value, both
+    # directions, through the multi-channel scan.  A boundary's own lcp is
+    # never "below" itself, so the inclusive scans are exactly psv/nsv.
+    vv = torch.arange(1, pack_w + 1, device=dev)[:, None]
+    below = lcp[None, :] < vv
+    idx32 = idx.to(torch.int32)
+    rs_all = mscan.multi_cummax(torch.where(below, idx32, -1))
+    ns_all = mscan.multi_cummin(torch.where(below, idx32, n_total),
+                                reverse=True)
+    psv = torch.full_like(idx, -1)
+    nsv = torch.full_like(idx, n_total)
+    for v in range(1, pack_w + 1):
+        sel = lcp == v
+        psv = torch.where(sel, rs_all[v - 1], psv)
+        nsv = torch.where(sel, ns_all[v - 1], nsv)
+
+    # deeper boundaries: binary descent bounded by the level-0 group size
+    deep = lcp > pack_w
+    if tdeep > 0:
+        minv = [lcp]
+        for t in range(tdeep - 1):
+            half = min(1 << t, n_total)
+            prev = minv[-1]
+            shifted = torch.cat([prev[half:], prev.new_full((half,), 2**30)])
+            minv.append(torch.minimum(prev, shifted))
+        ln = torch.zeros_like(idx)
+        for t in range(tdeep - 1, -1, -1):
+            j = idx - ln - (1 << t)
+            mv = minv[t][j.clamp(min=0)]
+            grow = (j >= 0) & (mv >= lcp) & deep
+            ln = torch.where(grow, ln + (1 << t), ln)
+        rn = torch.zeros_like(idx)
+        for t in range(tdeep - 1, -1, -1):
+            j = idx + rn + 1
+            ok = (j + (1 << t) - 1) <= n_total - 1
+            mv = minv[t][j.clamp(max=n_total - 1)]
+            grow = ok & (mv >= lcp) & deep
+            rn = torch.where(grow, rn + (1 << t), rn)
+        psv = torch.where(deep, idx - ln - 1, psv)
+        nsv = torch.where(deep, idx + rn + 1, nsv)
+
+    start = psv.clamp(min=0)
+    end = nsv - 1          # nsv in [i+1, N], so end in [0, N-1]
+    has_node = lcp >= 1
+
+    # all-sequences coverage: L[e] = min over sequences of the last
+    # occurrence at or before e (k scans fused with the min)
+    sv_ch = torch.arange(k, device=dev)[:, None]
+    occ = torch.where((seq_sorted[None, :] == sv_ch) & valid_s[None, :],
+                      idx32[None, :], -1)
+    L = mscan.multi_cummax(occ, min_over_channels=True)
+    allseq = has_node & (L[end] >= start)
+
+    # canonical representative per (start, end) group
+    s_key = torch.where(has_node, start, n_total)
+    e_key = torch.where(has_node, end, n_total)
+    bidx = _stable_sort2(s_key, e_key, n_total + 1)
+    sk, ek = s_key[bidx], e_key[bidx]
+    head = torch.cat([sk.new_ones(1, dtype=torch.bool),
+                      (sk[1:] != sk[:-1]) | (ek[1:] != ek[:-1])])
+    seg_id = torch.cumsum(head.to(torch.int64), 0) - 1
+    canon_of_seg = torch.zeros_like(idx)
+    canon_of_seg[seg_id[head]] = bidx[head]
+    canon_arr = torch.empty_like(idx)
+    canon_arr[bidx] = canon_of_seg[seg_id]
+    is_canon = has_node & (canon_arr == idx)
+
+    # deepest: mark parents of all-seq canonical nodes
+    lcp_ext = torch.cat([lcp, lcp.new_zeros(1)])
+    left_d = lcp_ext[start]
+    right_d = lcp_ext[(end + 1).clamp(max=n_total)]
+    parent_bound = torch.where(left_d >= right_d, start, end + 1)
+    parent_d = torch.maximum(left_d, right_d)
+    has_parent = is_canon & allseq & (parent_d >= 1)
+    pb = torch.where(has_parent, parent_bound.clamp(max=n_total - 1), 0)
+    haschild = torch.zeros(n_total, dtype=torch.bool, device=dev)
+    haschild[canon_arr[pb][has_parent]] = True
+    collected = is_canon & allseq & ~haschild
+    return collected, start, end
+
+
+class RotationFinal:
+    """Slim pipeline view: the suffix-free unique blocks plus the cascade
+    counts (field-compatible with ``csa_tpu.index.engine.RotationFinal``)."""
+
+    __slots__ = (
+        "num_collected", "num_after_suffix", "final_start", "final_depth",
+        "final_positions",
+    )
+
+
+def _collect_tail(order, lcp, lengths, collected, start, end, *, k: int,
+                  n_max: int):
+    """Compaction, interval expansion, suffix join, uniqueness and
+    positions.  Returns (nb, n_suffix, fstart, fdepth, fpositions) with
+    the final-block fields as host arrays."""
+    n_total = order.shape[0]
+    dev = order.device
+    n_of = _n_of_flat(lengths, n_max)
+    pos_sorted = order % n_max
+
+    bsel = torch.nonzero(collected).reshape(-1)
+    nb = int(bsel.shape[0])
+    bstart, bend, bdepth = start[bsel], end[bsel], lcp[bsel]
+    width = bend - bstart + 1          # >= 2: a node boundary lies inside
+
+    # expand the (disjoint) collected intervals: one entry per member
+    blk = torch.repeat_interleave(torch.arange(nb, device=dev), width)
+    offs = torch.cumsum(width, 0) - width
+    r = bstart[blk] + (torch.arange(blk.shape[0], device=dev) - offs[blk])
+    gmem = order[r]
+    mseq = gmem // n_max
+    d_b = bdepth[blk]
+    end_rot = mseq * n_max + (gmem % n_max + d_b) % n_of[gmem]
+
+    # suffix filter: occurrence-end join
+    repg = order[bstart]
+    rbase = (repg // n_max) * n_max
+    rep_end = rbase + (repg - rbase + bdepth) % n_of[repg]
+    maxd = torch.full((n_total,), -1, dtype=lcp.dtype, device=dev)
+    maxd.scatter_reduce_(0, rep_end, bdepth, reduce="amax")
+    hit = maxd[end_rot] > d_b
+    removed = torch.zeros(nb, dtype=torch.bool, device=dev)
+    removed[blk[hit]] = True
+    keep_suffix = ~removed
+
+    # uniqueness + positions
+    unique = width == k
+    minr = torch.full((nb * k,), 2**30, dtype=r.dtype, device=dev)
+    minr.scatter_reduce_(0, blk * k + mseq, r, reduce="amin")
+    positions = torch.where(minr < 2**30,
+                            pos_sorted[minr.clamp(max=n_total - 1)], 0)
+
+    final = keep_suffix & unique
+    fsel = torch.nonzero(final).reshape(-1)
+    fstart = bstart[fsel].cpu().numpy()
+    fdepth = bdepth[fsel].cpu().numpy()
+    fpos = positions.reshape(nb, k)[fsel].cpu().numpy()
+    return nb, int(keep_suffix.sum()), fstart, fdepth, fpos
+
+
+def _slim(nb: int, n_suffix: int, start, depth, pos) -> RotationFinal:
+    """RotationFinal in the numpy engine's block order (as
+    ``csa_tpu.index.engine._parse_slim``)."""
+    out = RotationFinal()
+    out.num_collected = nb
+    out.num_after_suffix = n_suffix
+    start = np.asarray(start, dtype=np.int64)
+    depth = np.asarray(depth, dtype=np.int64)
+    pos = np.asarray(pos, dtype=np.int64)  # (n_final, k)
+    o = np.lexsort((-depth, start))
+    out.final_start = start[o]
+    out.final_depth = depth[o]
+    out.final_positions = pos[o]
+    return out
+
+
+def rotation_final(encoded: Sequence[np.ndarray], device, *,
+                   pack_w: int = 12) -> Optional[RotationFinal]:
+    """The rotation block stage: build, collect, filter.  Returns a
+    :class:`RotationFinal`, or ``None`` when duplicate rotations demand
+    the exact host path (periodic inputs)."""
+    arrays, aux = _device_build(encoded, device, pack_w=pack_w)
+    if arrays is None:
+        return None
+    order, lcp, lengths = arrays
+    k, n_max, mg0 = aux
+    with PROFILER.phase("idx.collect_front"):
+        front = _collect_front(order, lcp, lengths, k=k, n_max=n_max,
+                               tdeep=_tdeep_for(mg0, k, n_max),
+                               pack_w=pack_w)
+        sync(order.device)
+    with PROFILER.phase("idx.collect_tail"):
+        res = _collect_tail(order, lcp, lengths, *front, k=k, n_max=n_max)
+    return _slim(*res)
+
+
+def linear_suffix_order(s_real: np.ndarray, device):
+    """Suffix sort of ONE linear string (separators encoded below the
+    characters): returns host (sa, lcp) over the real entries, the
+    counterpart of ``csa_tpu.index.engine.linear_suffix_order``.
+
+    Prefix doubling with the linear convention ``rank2 = -1`` past the end
+    of the string, ended when every group is a singleton (the loop of
+    ``_linear_index_device_et``); rank levels past the last realized one
+    hold the final all-unique rank, so their LCP steps are no-ops exactly
+    as in the JAX program."""
+    device = torch.device(device)
+    n = len(s_real)
+    total = _bucket(max(n, 8))
+    levels = _linear_levels(total)
+    s = np.zeros(total, dtype=np.int64)
+    s[:n] = s_real
+    g = torch.arange(total, device=device)
+    real = g < n
+    rank = torch.where(real, torch.from_numpy(s).to(device), total + g)
+    _, order = torch.sort(rank, stable=True)
+    stack = [rank]
+    t = 0
+    tied = True
+    # ranks < 2*total and rank2 in [-1, total): (rank, rank2 + 1) packs
+    # into one int64 key with span 2*total + 1
+    while tied and t < levels - 1:
+        pos2 = g + (1 << t)
+        rank2 = torch.where(real & (pos2 < n),
+                            rank[pos2.clamp(max=total - 1)], -1)
+        order = _stable_sort2(rank, rank2 + 1, 2 * total + 1)
+        r1s, r2s = rank[order], rank2[order]
+        samegrp = (r1s[1:] == r1s[:-1]) & (r2s[1:] == r2s[:-1])
+        tied = bool(samegrp.any())
+        dense = torch.cumsum(torch.cat([samegrp.new_zeros(1),
+                                        ~samegrp]).to(torch.int64), 0)
+        rank = torch.empty_like(dense)
+        rank[order] = dense
+        rank = torch.where(real, rank, total + g)
+        stack.append(rank)
+        t += 1
+    a, b = order[:-1], order[1:]
+    off = torch.zeros_like(a)
+    for tt in range(levels - 1, -1, -1):
+        rk = stack[min(tt, len(stack) - 1)]
+        ga, gb = a + off, b + off
+        ok = (ga < n) & (gb < n)
+        eq = ok & (rk[ga.clamp(max=total - 1)] == rk[gb.clamp(max=total - 1)])
+        off = torch.where(eq, off + (1 << tt), off)
+    lcp = torch.cat([off.new_zeros(1), off])
+    return order[:n].cpu().numpy(), lcp[:n].cpu().numpy()

@@ -1,0 +1,165 @@
+"""Build, load and launch the hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into ONE
+shared library with a plain C interface, loaded with :mod:`ctypes`:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o _build/libcsa_kernels_<hash>.so csrc/*.cu
+
+The library name carries a hash of the sources and flags, so the first
+call after a source edit rebuilds it; a stale library is never loaded.
+The build happens at first use, never at import, so the CPU-only test
+machines can import every module.  A missing ``nvcc`` or a failed build
+raises :class:`KernelBuildError`: there is no fallback.
+
+Each C entry launches on the caller's stream (PyTorch's current stream)
+and returns ``cudaGetLastError()``; :func:`call` raises
+:class:`KernelLaunchError` when it is not 0.
+
+``COUNTS`` holds one launch counter per kernel wrapper; each wrapper adds
+one exactly where it calls its C entry, so a run can show which kernels
+the main path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+COUNTS = {"mscan": 0, "profile_dp": 0}
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+# C entry -> argument types (pointers and the stream are c_void_p)
+_SIGNATURES = {
+    "csa_mscan": [_VP, _VP, _VP, _I, _LL, _I, _I, _VP],
+    "csa_profile_paths": [
+        _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+        _I, _I, _I, _VP, _VP, _VP,
+    ],
+    "csa_smem_optin": [ctypes.POINTER(ctypes.c_int)],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused the sources."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A C entry reported a CUDA error."""
+
+
+def reset_counts() -> None:
+    for name in COUNTS:
+        COUNTS[name] = 0
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _find_nvcc() -> Optional[str]:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    return str(cand) if cand.is_file() else None
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libcsa_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(force: bool = False) -> Path:
+    """Compile ``csrc/*.cu`` unless a library of the same hash exists."""
+    out = library_path()
+    if out.exists() and not force:
+        return out
+    nvcc = _find_nvcc()
+    if nvcc is None:
+        raise KernelBuildError(
+            "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
+            "csa_tpu_torch cannot be built"
+        )
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed and load the kernel library (once per process)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.csa_error_string.argtypes = [ctypes.c_int]
+        lib.csa_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def call(name: str, *args) -> None:
+    """Run one C entry; raise if it reports a CUDA error."""
+    lib = load()
+    rc = getattr(lib, name)(*args)
+    if rc != 0:
+        msg = lib.csa_error_string(rc).decode()
+        raise KernelLaunchError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def smem_optin() -> int:
+    """Largest dynamic shared memory one block may opt into, in bytes."""
+    out = ctypes.c_int(0)
+    call("csa_smem_optin", ctypes.byref(out))
+    return out.value
+
+
+def stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_device(t: torch.Tensor, what: str) -> str:
+    """'cpu' or 'cuda' for a tensor; raise for any other device type."""
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(
+            f"{what}: tensors must lie on the CPU or a CUDA device, "
+            f"got {t.device}"
+        )
+    return kind

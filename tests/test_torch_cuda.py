@@ -1,0 +1,100 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Marked ``cuda``; each test skips where no CUDA device is present.
+This file imports neither JAX nor the JAX package's device code, so the
+card's machine runs it without JAX:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from csa_tpu_torch import kernels
+from csa_tpu_torch.dp import profile
+from csa_tpu_torch.index import mscan
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N", [(1, 1), (3, 2047), (12, 70_001),
+                                 (64, 4097)])
+def test_mscan_kernel_matches_plain(cuda, M, N):
+    rng = np.random.default_rng(M * 7 + N)
+    x = torch.from_numpy(
+        rng.integers(-(2**30), 2**30, size=(M, N)).astype(np.int32)
+    ).to(cuda)
+    for reverse in (False, True):
+        for reduce in (False, True):
+            before = kernels.COUNTS["mscan"]
+            got = mscan.multi_cummax(x, reverse=reverse,
+                                     min_over_channels=reduce)
+            assert kernels.COUNTS["mscan"] == before + 1
+            want = mscan.multi_cummax_plain(x, reverse=reverse,
+                                            min_over_channels=reduce)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            got = mscan.multi_cummin(x, reverse=reverse,
+                                     max_over_channels=reduce)
+            want = -mscan.multi_cummax_plain(-x, reverse=reverse,
+                                             min_over_channels=reduce)
+            assert torch.equal(got, want)
+
+
+def _items(rng, G, rmax, cmax, i_max=17, stale=True):
+    items = []
+    for _ in range(G):
+        R = int(rng.integers(1, rmax))
+        C = int(rng.integers(1, cmax))
+        i = int(rng.integers(1, i_max))
+        codes = rng.integers(0, 4, size=R).astype(np.int64)
+        sv = rng.integers(0, min(i, 64) + 1, size=(C, 5)).astype(np.int64)
+        if stale:
+            top = rng.integers(-60, 10, size=C + 1).astype(np.int64)
+            erg = int(rng.integers(-20, 0))
+        else:
+            top = profile.default_top_row(sv, i, indel=-1, doublegap=0)
+            erg = -i
+        items.append((codes, sv, i, top, erg))
+    return items
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged_stale", "fresh", "i64",
+                                  "thin", "wide_global_scratch"])
+def test_profile_kernel_matches_plain(cuda, case):
+    rng = np.random.default_rng(len(case))
+    sc = {}
+    if case == "ragged_stale":
+        items = _items(rng, 12, 700, 900)
+    elif case == "fresh":
+        items = _items(rng, 5, 300, 300, stale=False)
+        sc = dict(match=3, mismatch=-2, indel=-4, doublegap=-1)
+    elif case == "i64":
+        items = _items(rng, 3, 200, 200, i_max=65)
+        items = [(c, s, 64, t, e) for c, s, _, t, e in items]
+    elif case == "thin":
+        items = []
+        for R, C in [(1, 500), (500, 1), (1, 1)]:
+            sv = rng.integers(0, 4, size=(C, 5))
+            items.append((rng.integers(0, 4, size=R), sv, 3,
+                          profile.default_top_row(sv, 3, indel=-1,
+                                                  doublegap=0), -3))
+    else:  # 3 * (C + 1) * 4 bytes above the shared-memory opt-in
+        items = _items(rng, 2, 300, 2, stale=True)
+        items.append(_items(rng, 1, 50, 2)[0])
+        C = 24_000
+        items[0] = (items[0][0], rng.integers(0, 4, size=(C, 5)), 4,
+                    rng.integers(-60, 10, size=C + 1), -7)
+    before = kernels.COUNTS["profile_dp"]
+    got = profile.profile_paths(items, cuda, **sc)
+    assert kernels.COUNTS["profile_dp"] == before + 1
+    want = profile.profile_paths_plain(items, cuda, **sc)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
