@@ -6,23 +6,41 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 Phases, one JSON line each on stdout:
-  1. toolchain: torch, CUDA, nvcc, triton, the card (nvidia-smi);
-  2. build:     both kernels from csa_tpu_torch/csrc with nvcc (sm_90a);
-  3. mscan:     kernel against torch.cummax, every option, at the
-                collect cascade's shapes (Primates, 8 x 1 Mbp);
+  1. toolchain: torch, CUDA, nvcc, triton, the card (nvidia-smi), and the
+                port's native host library, which must build;
+  2. build:     every kernel from csa_tpu_torch/csrc with nvcc (sm_90a),
+                one nvcc per source, all started together;
+  3. mscan:     kernel against its plain version, every option, at the
+                collect cascade's shapes (Primates, 8 x 1 Mbp), with
+                torch.cummax / torch.cummin timed beside it;
   4. profile:   the profile-DP kernel's paths against the plain version's
                 (ragged stale batch, non-default scoring, i = 64, R or
                 C = 1, 8 x 8192^2, one 17k x 28k gap);
-  5. pipeline:  the port's CLI, full pipeline, on Primates and Set3, with
+  5. nw:        the NW kernel's scores against the plain version's, exact:
+                the Primates oracle batch (135 x 17,408^2), ragged and
+                edge shapes, every strip width, several row bands; and 4
+                pairs against the native host library;
+  6. pipeline:  the port's CLI, full pipeline, on Primates and Set3, with
                 rotated and aligned output against the fixtures, the
-                integrity check and both kernels' launch counts (zeroed
-                just before, read just after);
-  6. mbp:       rotation mode on 8 x 1 Mbp (seed 7) against the native
-                host engine on the same machine.
+                integrity check and the kernels' launch counts (zeroed
+                just before, read just after); the native host engine's
+                CLI on the same sets, as a separate process;
+  7. verify:    the port's CLI, R --verify-rotations, on Primates and
+                Set3: rotated output against the fixtures, the printed
+                oracle lines and the margins against the plain version's
+                on the card from the same batch, and the NW kernel's
+                launch count (zeroed just before, read just after);
+  8. mbp:       rotation mode on 8 x 1 Mbp (seed 7): the port's CLI
+                against the native host engine's CLI on the same machine.
 Then the card's name and power limit, a JSON line with one entry per
-kernel, and the last line {"ok": true, "device": {...}}.  Any failed
-phase raises: the exit code is non-zero and the last line is not
-printed.  Without a CUDA device it exits 2 before printing anything.
+kernel (its time, the plain version's, the bound, the library call's),
+and the last line {"ok": true, "device": {...}}.  Any failed phase
+raises: the exit code is non-zero and the last line is not printed.
+Without a CUDA device it exits 2 before printing anything.
+
+This script imports neither JAX nor the JAX package; the native host
+engine (``python -m csa_tpu.cli --backend native``) runs in its own
+process, so its walls include the interpreter's start-up, printed once.
 """
 
 from __future__ import annotations
@@ -40,6 +58,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 FIX = ROOT / "tests" / "fixtures"
 
+# H100 SXM peaks for the bounds (NVIDIA data sheet, 700 W): HBM bytes/s,
+# and int32 operations/s as 132 SMs x 64 INT32 lanes x 1.98 GHz
+MEM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int32 operations a cell: the profile DP's three moves, three compares
+# and four selects (value and direction code); NW's equality test,
+# select, add and three-way max (csrc/nw.cu)
+PROFILE_OPS_PER_CELL = 10
+NW_OPS_PER_CELL = 4
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -48,6 +76,13 @@ def emit(obj) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    int32 operations over the int32 rate."""
+    tb, to = nbytes / MEM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -86,6 +121,58 @@ def smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
+@contextlib.contextmanager
+def in_dir(path):
+    cwd = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(cwd)
+
+
+def run_port_cli(cli, tmp: Path, argv):
+    """(stdout text, wall seconds) of the port's CLI run in ``tmp``."""
+    log = io.StringIO()
+    with in_dir(tmp):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = cli.main(list(argv))
+        wall = time.perf_counter() - t0
+    check(rc == 0, f"port CLI {argv} returned {rc}")
+    return log.getvalue(), wall
+
+
+def run_python(tmp: Path, argv, timeout=900) -> float:
+    """Wall seconds of ``python <argv>`` in ``tmp`` (the repo on its
+    path); raises if it fails."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *argv], cwd=tmp, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"python {' '.join(argv)} returned {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    return wall
+
+
+def native_cli(tmp: Path, argv) -> float:
+    """Wall seconds of the native host engine's CLI (the JAX package's
+    ``--backend native``, which imports no JAX) in its own process."""
+    return run_python(tmp, ["-m", "csa_tpu.cli", *argv, "--backend",
+                            "native"])
+
+
+def copy_fixture(tmp: Path, name: str) -> None:
+    (tmp / f"{name}.txt").write_bytes((FIX / f"{name}.txt").read_bytes())
+
+
+def rotations_of(fio, path: Path):
+    return [fio.parse_rotated_header(l[1:].strip())[1]
+            for l in path.read_text().splitlines() if l.startswith(">")]
+
+
 def phase_toolchain(kernels, native):
     import torch
 
@@ -99,12 +186,17 @@ def phase_toolchain(kernels, native):
         triton_ver = triton.__version__
     except ImportError:
         triton_ver = None
+    t0 = time.perf_counter()
+    have_native = native.available()
+    native_s = time.perf_counter() - t0
     emit({"phase": "toolchain", "torch": torch.__version__,
           "cuda": torch.version.cuda, "nvcc": ver[-1], "triton": triton_ver,
           "nvidia_smi": smi_line(),
           "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
-          "native_host_engine": native.available()})
+          "native_host_library": have_native,
+          "native_build_s": native_s})
+    check(have_native, "the port's native host library did not build")
 
 
 def phase_build(kernels):
@@ -113,7 +205,7 @@ def phase_build(kernels):
     kernels.load()
     emit({"phase": "build", "library": str(lib.relative_to(ROOT)),
           "sources": [str(p.relative_to(ROOT)) for p in kernels.sources()],
-          "seconds": round(time.perf_counter() - t0, 3)})
+          "seconds": time.perf_counter() - t0})
 
 
 def phase_mscan(mscan, stats):
@@ -136,11 +228,13 @@ def phase_mscan(mscan, stats):
                 x, reverse=reverse, max_over_channels=reduce)
             plain = lambda: -mscan.multi_cummax_plain(  # noqa: E731
                 -x, reverse=reverse, min_over_channels=reduce)
+            lib = lambda: torch.cummin(x, 1).values  # noqa: E731
         else:
             kern = lambda: mscan.multi_cummax(  # noqa: E731
                 x, reverse=reverse, min_over_channels=reduce)
             plain = lambda: mscan.multi_cummax_plain(  # noqa: E731
                 x, reverse=reverse, min_over_channels=reduce)
+            lib = lambda: torch.cummax(x, 1).values  # noqa: E731
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
@@ -149,12 +243,19 @@ def phase_mscan(mscan, stats):
               f"mscan differs M={M} N={N} cummin={cummin} "
               f"reverse={reverse} reduce={reduce}")
         ms, pms = cuda_ms(kern, 5), cuda_ms(plain, 5)
+        # one library call computes the function only for a forward scan
+        # that keeps every channel
+        lms = None if reverse or reduce else cuda_ms(lib, 5)
+        out_elems = N if reduce else M * N
+        bms, by = bound(4 * (M * N + out_elems), M * N)
         emit({"phase": "mscan", "M": M, "N": N, "cummin": cummin,
               "reverse": reverse, "reduce": reduce, "equal": True,
-              "ms": round(ms, 4), "plain_ms": round(pms, 4)})
+              "ms": ms, "plain_ms": pms, "library_ms": lms,
+              "bound_ms": bms, "bound_by": by})
         if (M, N, cummin, reverse, reduce) == (12, 278_528, False, False,
                                                 False):
-            stats["mscan"].update(ms=ms, plain_ms=pms)
+            stats["mscan"].update(ms=ms, plain_ms=pms, library_ms=lms,
+                                  bound_ms=bms, bound_by=by)
     stats["mscan"]["max_abs_err"] = worst
 
 
@@ -206,13 +307,69 @@ def phase_profile(profile, stats):
             check(len(a) == len(b) and np.array_equal(a, b),
                   f"profile paths differ in case {name}")
             worst = max(worst, int(np.abs(a.astype(int) - b).max(initial=0)))
+        # codes (1 B), score vector (5 x 4 B), top row (4 B) in, path out
+        nbytes = sum(R + 24 * C + 4 + (R + C) for R, C in shapes)
+        bms, by = bound(nbytes, PROFILE_OPS_PER_CELL * cells)
         emit({"phase": "profile", "case": name, "gaps": len(items),
-              "cells": cells, "equal": True, "ms": round(ms, 3),
-              "plain_ms": round(pms, 3),
-              "kernel_gcell_per_s": round(cells / ms / 1e6, 4)})
+              "cells": cells, "equal": True, "ms": ms, "plain_ms": pms,
+              "kernel_gcell_per_s": cells / ms / 1e6,
+              "bound_ms": bms, "bound_by": by})
         if name == "batch_8x8192":
-            stats["profile_dp"].update(ms=ms, plain_ms=pms)
+            stats["profile_dp"].update(ms=ms, plain_ms=pms, library_ms=None,
+                                       bound_ms=bms, bound_by=by)
     stats["profile_dp"]["max_abs_err"] = worst
+
+
+def _primates_oracle_batch(fio, verification):
+    seqs = fio.load_fasta(str(FIX / "Primates.txt"), log=io.StringIO())
+    rotations = rotations_of(fio, FIX / "Primates-Rotated.fasta")
+    return verification.oracle_batch(seqs.encoded_all(), rotations)
+
+
+def phase_nw(nw, fio, verification, stats):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(3)
+    rand = lambda B, la, lb: (  # noqa: E731
+        rng.integers(0, 4, size=(B, la)), rng.integers(0, 4, size=(B, lb)))
+    cases = [("primates_oracle", _primates_oracle_batch(fio, verification))]
+    for name, shape in [("la_ne_lb", (3, 40, 55)), ("la_1", (2, 1, 7)),
+                        ("lb_1", (2, 7, 1)), ("odd_lengths", (4, 131, 62)),
+                        ("b_1", (1, 1000, 999)), ("strip_8", (2, 5000, 3001)),
+                        ("strip_16", (2, 12_001, 1777)),
+                        ("two_bands", (2, 20_481, 300)),
+                        ("three_bands", (1, 45_000, 64))]:
+        cases.append((name, rand(*shape)))
+    worst = 0
+    for name, (a_np, b_np) in cases:
+        a = torch.from_numpy(np.ascontiguousarray(a_np)).to("cuda")
+        b = torch.from_numpy(np.ascontiguousarray(b_np)).to("cuda")
+        B, la = a.shape
+        lb = b.shape[1]
+        kern = lambda: nw.pairwise_nw_scores(a, b, "cuda")  # noqa: E731
+        got = kern()
+        want, pms = wall_ms(lambda: nw.pairwise_nw_scores_plain(
+            a.to(torch.int32), b.to(torch.int32)))
+        err = int((got.long() - want.long()).abs().max())
+        worst = max(worst, err)
+        check(torch.equal(got, want), f"nw scores differ in case {name}")
+        ms = cuda_ms(kern, 3)
+        cells = B * la * lb
+        bms, by = bound(4 * (B * la + B * lb + B), NW_OPS_PER_CELL * cells)
+        rec = {"phase": "nw", "case": name, "B": B, "la": la, "lb": lb,
+               "S_T_bands": list(nw.plan(la)), "equal": True, "ms": ms,
+               "plain_ms": pms, "gcell_per_s": cells / ms / 1e6,
+               "bound_ms": bms, "bound_by": by}
+        if name == "primates_oracle":
+            host = nw.nw_scores_host(a_np[:4], b_np[:4])
+            check(np.array_equal(host, got[:4].cpu().numpy()),
+                  "nw scores differ from the native host library")
+            rec["native_host_equal_first_4"] = True
+            stats["nw"].update(ms=ms, plain_ms=pms, library_ms=None,
+                               bound_ms=bms, bound_by=by)
+        emit(rec)
+    stats["nw"]["max_abs_err"] = worst
 
 
 def _content_rows(path):
@@ -220,24 +377,14 @@ def _content_rows(path):
             if not l.startswith(">")]
 
 
-def phase_pipeline(cli, kernels, tools_files, jcli):
+def phase_pipeline(cli, kernels, tools_files):
     walls = {}
     kernels.reset_counts()
     for name in ("Primates", "Set3"):
         with tempfile.TemporaryDirectory() as tmp:
             tmp = Path(tmp)
-            (tmp / f"{name}.txt").write_bytes((FIX / f"{name}.txt").read_bytes())
-            log = io.StringIO()
-            cwd = os.getcwd()
-            os.chdir(tmp)
-            try:
-                t0 = time.perf_counter()
-                with contextlib.redirect_stdout(log):
-                    rc = cli.main([f"{name}.txt"])
-                wall = time.perf_counter() - t0
-            finally:
-                os.chdir(cwd)
-            check(rc == 0, f"{name}: port CLI returned {rc}")
+            copy_fixture(tmp, name)
+            _, walls[name] = run_port_cli(cli, tmp, [f"{name}.txt"])
             rot = tmp / f"{name}-Rotated.fasta"
             aln = tmp / f"{name}-Aligned.fasta"
             check(rot.read_bytes() == (FIX / f"{name}-Rotated.fasta")
@@ -248,31 +395,94 @@ def phase_pipeline(cli, kernels, tools_files, jcli):
             check(tools_files.test_alignment_output(
                 str(rot), str(aln), log=io.StringIO()),
                 f"{name}: integrity check failed")
-        walls[name] = wall
     launches = dict(kernels.COUNTS)
-    check(all(v > 0 for v in launches.values()),
+    check(launches["mscan"] > 0 and launches["profile_dp"] > 0,
           f"a kernel of the main path was not launched: {launches}")
     native_walls = {}
-    for name in ("Primates", "Set3"):
-        with tempfile.TemporaryDirectory() as tmp:
-            tmp = Path(tmp)
-            (tmp / f"{name}.txt").write_bytes((FIX / f"{name}.txt").read_bytes())
-            cwd = os.getcwd()
-            os.chdir(tmp)
-            try:
-                t0 = time.perf_counter()
-                with contextlib.redirect_stdout(io.StringIO()):
-                    rc = jcli.main([f"{name}.txt", "--backend", "native"])
-                native_walls[name] = time.perf_counter() - t0
-            finally:
-                os.chdir(cwd)
-            check(rc == 0, f"{name}: native CLI returned {rc}")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # build the native host engine's library before timing it
+        run_python(tmp, ["-c", "from csa_tpu import native\n"
+                               "assert native.available()"])
+        startup = run_python(tmp, ["-c", "pass"])
+        for name in ("Primates", "Set3"):
+            copy_fixture(tmp, name)
+            native_walls[name] = native_cli(tmp, [f"{name}.txt"])
+            check((tmp / f"{name}-Rotated.fasta").read_bytes()
+                  == (FIX / f"{name}-Rotated.fasta").read_bytes(),
+                  f"{name}: the native CLI's -Rotated.fasta differs")
     emit({"phase": "pipeline", "rotated_identical": True,
           "aligned_rows_identical": True, "integrity": True,
-          "launches": launches,
-          "port_wall_s": {k: round(v, 3) for k, v in walls.items()},
-          "native_host_wall_s": {k: round(v, 3)
-                                 for k, v in native_walls.items()}})
+          "launches": launches, "port_wall_s": walls,
+          "native_cli_wall_s": native_walls,
+          "interpreter_startup_s": startup})
+    return launches
+
+
+def _oracle_lines(text: str):
+    return [l for l in text.splitlines()
+            if l.startswith("> Verifying rotations")
+            or l.startswith(">   WARNING sequence")]
+
+
+def phase_verify(cli, kernels, nw, verification):
+    import numpy as np
+    import torch
+
+    from csa_tpu_torch.utils import PROFILER
+
+    captured = []
+    real = verification.verify_rotations
+
+    def spy(*args, **kw):
+        res = real(*args, **kw)
+        captured.append((args, kw, res))
+        return res
+
+    out = {}
+    verification.verify_rotations = spy
+    kernels.reset_counts()
+    try:
+        for name in ("Primates", "Set3"):
+            with tempfile.TemporaryDirectory() as tmp:
+                tmp = Path(tmp)
+                copy_fixture(tmp, name)
+                PROFILER.reset()
+                text, wall = run_port_cli(
+                    cli, tmp, ["R", f"{name}.txt", "--verify-rotations",
+                               "--profile"])
+                check((tmp / f"{name}-Rotated.fasta").read_bytes()
+                      == (FIX / f"{name}-Rotated.fasta").read_bytes(),
+                      f"{name}: -Rotated.fasta differs with the oracle on")
+            phase_s = [float(l.split()[2].rstrip("s"))
+                       for l in text.splitlines()
+                       if l.startswith(">   rot.device_verify")]
+            out[name] = {"lines": _oracle_lines(text), "wall_s": wall,
+                         "rot.device_verify_s": phase_s[0]}
+    finally:
+        verification.verify_rotations = real
+    launches = dict(kernels.COUNTS)
+    check(launches["nw"] > 0, f"the NW kernel was not launched: {launches}")
+    check(len(captured) == 2, "the oracle did not run once per set")
+    for name, (args, kw, res) in zip(("Primates", "Set3"), captured):
+        encoded, rotations = args
+        a, b = verification.oracle_batch(encoded, rotations)
+        scores = nw.pairwise_nw_scores_plain(
+            torch.from_numpy(a).to("cuda"), torch.from_numpy(b).to("cuda"))
+        log = io.StringIO()
+        want = verification.report(scores.cpu().numpy(), len(encoded), 8, log)
+        check(want.num_confirmed == res.num_confirmed
+              and np.array_equal(want.margins, res.margins)
+              and np.array_equal(want.chosen_scores, res.chosen_scores),
+              f"{name}: oracle margins differ from the plain version's")
+        check(out[name]["lines"] == log.getvalue().splitlines(),
+              f"{name}: printed oracle lines differ from the plain version's")
+        out[name].update(pairs=int(a.shape[0]), length=int(a.shape[1]),
+                         confirmed=res.num_confirmed,
+                         checked=res.num_checked,
+                         margins=[int(m) for m in res.margins])
+    emit({"phase": "verify", "launches": launches, "rotated_identical": True,
+          "equal_to_plain": True, "sets": out})
     return launches
 
 
@@ -291,7 +501,7 @@ def _mbp_set(n=1_000_000, k=8, seed=7):
     return rows
 
 
-def phase_mbp(cli, rot, kernels, fio, jrot):
+def phase_mbp(cli, rot, kernels, fio):
     import numpy as np
 
     letters = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -301,36 +511,25 @@ def phase_mbp(cli, rot, kernels, fio, jrot):
         with open(src, "w") as f:
             for i, row in enumerate(_mbp_set()):
                 f.write(f">s{i}\n{letters[row].tobytes().decode()}\n")
-        cwd = os.getcwd()
-        os.chdir(tmp)
         kernels.reset_counts()
-        try:
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(io.StringIO()):
-                rc = cli.main(["R", "mbp.txt"])
-            port_wall = time.perf_counter() - t0
-        finally:
-            os.chdir(cwd)
-        check(rc == 0, f"mbp: port CLI returned {rc}")
+        _, port_wall = run_port_cli(cli, tmp, ["R", "mbp.txt"])
         check(kernels.COUNTS["mscan"] > 0, "mbp: mscan was not launched")
-        got = [fio.parse_rotated_header(l[1:].strip())[1]
-               for l in (tmp / "mbp-Rotated.fasta").read_text().splitlines()
-               if l.startswith(">")]
+        got = rotations_of(fio, tmp / "mbp-Rotated.fasta")
         seqs = fio.load_fasta(str(src), log=io.StringIO())
-        t0 = time.perf_counter()
-        res = jrot.analyze(seqs, backend="native", log=io.StringIO())
-        native_wall = time.perf_counter() - t0
         port, port_analyze_ms = wall_ms(lambda: rot.analyze(
             seqs, device="cuda", log=io.StringIO()))
-    check(list(map(int, res.rotations)) == got,
-          "mbp: port rotations (CLI) differ from the native engine")
+        (tmp / "mbp-Rotated.fasta").unlink()
+        native_wall = native_cli(tmp, ["R", "mbp.txt"])
+        want = rotations_of(fio, tmp / "mbp-Rotated.fasta")
+    check(want == got, "mbp: port rotations (CLI) differ from the native "
+                       "engine's")
     check(list(map(int, port.rotations)) == got,
           "mbp: port rotations (analyze) differ from the CLI's")
     emit({"phase": "mbp", "sequences": 8, "length": 1_000_000,
           "rotations_equal_native": True,
-          "port_cli_R_wall_s": round(port_wall, 3),
-          "port_analyze_wall_s": round(port_analyze_ms / 1e3, 3),
-          "native_analyze_wall_s": round(native_wall, 3)})
+          "port_cli_R_wall_s": port_wall,
+          "port_analyze_wall_s": port_analyze_ms / 1e3,
+          "native_cli_R_wall_s": native_wall})
 
 
 def main() -> int:
@@ -340,38 +539,37 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from csa_tpu import cli as jcli  # the native host engine's CLI
-    from csa_tpu import native
-    from csa_tpu.io import fasta as fio
-    from csa_tpu.rotation import pipeline as jrot
-    from csa_tpu.tools import files as tools_files
-    from csa_tpu_torch import cli, kernels
-    from csa_tpu_torch.dp import profile
+    from csa_tpu_torch import cli, kernels, native
+    from csa_tpu_torch.dp import nw, profile
     from csa_tpu_torch.index import mscan
+    from csa_tpu_torch.io import fasta as fio
     from csa_tpu_torch.rotation import pipeline as rot
+    from csa_tpu_torch.rotation import verification
+    from csa_tpu_torch.tools import files as tools_files
 
-    stats = {"mscan": {}, "profile_dp": {}}
+    stats = {"mscan": {}, "profile_dp": {}, "nw": {}}
     phase_toolchain(kernels, native)
     phase_build(kernels)
     phase_mscan(mscan, stats)
     phase_profile(profile, stats)
-    launches = phase_pipeline(cli, kernels, tools_files, jcli)
-    phase_mbp(cli, rot, kernels, fio, jrot)
+    phase_nw(nw, fio, verification, stats)
+    launches = phase_pipeline(cli, kernels, tools_files)
+    launches["nw"] = phase_verify(cli, kernels, nw, verification)["nw"]
+    phase_mbp(cli, rot, kernels, fio)
     check("jax" not in sys.modules, "jax was imported")
+    check("csa_tpu" not in sys.modules, "the JAX package was imported")
 
     meta = {
         "mscan": ("csa_tpu_torch/csrc/mscan.cu",
                   "csa_tpu/index/mscan.py:34"),
         "profile_dp": ("csa_tpu_torch/csrc/profile_dp.cu",
                        "csa_tpu/dp/pallas_profile.py:83"),
+        "nw": ("csa_tpu_torch/csrc/nw.cu", "csa_tpu/dp/pallas_nw.py:38"),
     }
     print(smi_line())
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
-         "max_abs_err": stats[name]["max_abs_err"],
-         "ms": round(stats[name]["ms"], 4),
-         "plain_ms": round(stats[name]["plain_ms"], 4)}
+         "launches": launches[name], **stats[name]}
         for name, (src, rep) in meta.items()
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -4,28 +4,51 @@
 The linear suffix index is sorted on ``device`` by
 :func:`..index.engine.linear_suffix_order`; the attachment statistics are
 host sweeps, the native C++ kernel when it is built and otherwise the
-numpy twin, and the grouping is the JAX package's own
-``_group_border_nodes``, exactly as ``csa_tpu.align.anchors`` does.
+numpy twin, and the grouping is ``_group_border_nodes``.  The host parts
+(:class:`BorderNode`, :class:`LinearIndex`, the sweeps and the grouping)
+are the port's own copies of those in ``csa_tpu.align.anchors``.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List, Sequence
 
 import numpy as np
 
-from csa_tpu import native
-from csa_tpu.align.anchors import (
-    BorderNode,
-    LinearIndex,
-    _group_border_nodes,
-    _nearest_le_threshold,
-    _segmented_running_min,
-)
-
+from .. import native
 from ..index import engine
 
 __all__ = ["BorderNode", "build_linear_index", "compute_border_nodes"]
+
+
+@dataclass
+class BorderNode:
+    """A Multi-MEM anchor candidate (reference: morenodeslinkedlists.h:11-22).
+
+    ``positions[i]`` are the sorted occurrence starts in rotated sequence
+    ``i`` coordinates; ``size`` is the string depth.
+    """
+
+    size: int
+    positions: List[np.ndarray]  # per sequence, ascending
+
+
+@dataclass
+class LinearIndex:
+    """Suffix order of the rotated linear sequences.
+
+    sa entries are (seq, pos) pairs flattened as seq * stride + pos over
+    real positions only; ``lcp[i]`` is the (length-capped) LCP between
+    entries ``i-1`` and ``i``.
+    """
+
+    seq_of: np.ndarray  # (M,) sequence id per sorted entry
+    pos_of: np.ndarray  # (M,) rotated-coordinate suffix start per entry
+    cap: np.ndarray  # (M,) suffix length per entry
+    lcp: np.ndarray  # (M,) adjacent capped LCPs, lcp[0] = 0
+    num_seqs: int
+
 
 
 def build_linear_index(encoded_rotated: Sequence[np.ndarray],
@@ -59,9 +82,65 @@ def build_linear_index(encoded_rotated: Sequence[np.ndarray],
                        num_seqs=k)
 
 
+def _segmented_running_min(values: np.ndarray, seg_ids: np.ndarray) -> np.ndarray:
+    """Running min of ``values`` within segments of non-decreasing ids."""
+    m = len(values)
+    if m == 0:
+        return values
+    out = values.astype(np.int64)
+    # band trick: subtract seg_id * B (B > value range) so each segment's
+    # values live in a disjoint decreasing band; a global running min then
+    # never crosses bands upward, which is exactly a per-segment reset.
+    B = np.int64(1 << 40)
+    banded = out - seg_ids.astype(np.int64) * B
+    acc = np.minimum.accumulate(banded)
+    return acc + seg_ids.astype(np.int64) * B
+
+
+def _nearest_le_threshold(values: np.ndarray, thresh: np.ndarray):
+    """For each index x: Lb = largest j <= x with values[j] <= thresh[x],
+    and Rb = smallest j > x with values[j] <= thresh[x] (may be M, the
+    virtual 0 sentinel).  Range-min sparse table + binary descent."""
+    m = len(values)
+    tables = [values.astype(np.int64)]
+    t = 0
+    while (1 << (t + 1)) <= m:
+        prev = tables[-1]
+        half = 1 << t
+        tables.append(np.minimum(prev[: m - 2 * half + 1], prev[half : m - half + 1]))
+        t += 1
+    ntab = len(tables)
+    idx = np.arange(m, dtype=np.int64)
+
+    # Lb: grow the run (x-len .. x] keeping min(values) > thresh
+    ln = np.zeros(m, dtype=np.int64)
+    for tt in range(ntab - 1, -1, -1):
+        half = np.int64(1 << tt)
+        j = idx - ln - half + 1  # window [j, j+half) ending at x-ln
+        ok = j >= 0
+        mv = np.where(ok, tables[tt][np.maximum(j, 0)], np.int64(-1))
+        grow = ok & (mv > thresh)
+        ln = np.where(grow, ln + half, ln)
+    lb = idx - ln
+    # values[0] = 0 <= thresh always, so lb >= 0
+
+    rn = np.zeros(m, dtype=np.int64)
+    for tt in range(ntab - 1, -1, -1):
+        half = np.int64(1 << tt)
+        j = idx + rn + 1
+        ok = (j + half - 1) <= (m - 1)  # window [j, j+half) inside array
+        jc = np.clip(j, 0, max(m - int(half), 0))
+        mv = np.where(ok, tables[tt][jc], np.int64(-1))
+        grow = ok & (mv > thresh)
+        rn = np.where(grow, rn + half, rn)
+    rb = idx + rn + 1  # may be m (virtual 0 sentinel)
+    return lb, rb
+
+
+
 def _attach_numpy(idx: LinearIndex):
     """Matching statistic and attachment depth by numpy sweeps (the twin
-    of ``native.anchor_attach``, csa_tpu/align/anchors.py:251-288)."""
+    of ``native.anchor_attach``)."""
     k = idx.num_seqs
     m = len(idx.lcp)
     seq, cap, lcp = idx.seq_of, idx.cap, idx.lcp
@@ -96,3 +175,59 @@ def compute_border_nodes(encoded_rotated: Sequence[np.ndarray],
     res = native.anchor_attach(idx.seq_of, idx.lcp, idx.cap, idx.num_seqs)
     att, lb2 = res if res is not None else _attach_numpy(idx)
     return _group_border_nodes(idx, att, lb2)
+
+
+def _group_border_nodes(
+    idx: LinearIndex, att: np.ndarray, lb2: np.ndarray
+) -> List[BorderNode]:
+    """Group suffix entries into border nodes by (interval, depth)."""
+    k = idx.num_seqs
+    seq = idx.seq_of
+    valid = att >= 1
+
+    nodes: List[BorderNode] = []
+    if not np.any(valid):
+        return nodes
+    krot = idx.pos_of
+    order = np.lexsort((krot, seq, att, lb2))
+    order = order[valid[order]]
+    l_o = lb2[order]
+    a_o = att[order]
+    s_o = seq[order]
+    k_o = krot[order]
+    group_break = np.ones(len(order), dtype=bool)
+    group_break[1:] = (l_o[1:] != l_o[:-1]) | (a_o[1:] != a_o[:-1])
+    group_ids = np.cumsum(group_break) - 1
+    num_groups = int(group_ids[-1]) + 1 if len(group_ids) else 0
+    if num_groups == 0:
+        return nodes
+    # vectorized split: entries are sorted by (group, seq, pos), so each
+    # (group, seq) run is one contiguous slice
+    seq_break = group_break | np.concatenate([[True], s_o[1:] != s_o[:-1]])
+    run_starts = np.nonzero(seq_break)[0]
+    run_ends = np.concatenate([run_starts[1:], [len(order)]])
+    run_group = group_ids[run_starts]
+    run_seq = s_o[run_starts]
+    # keep only groups covering all k sequences
+    seqs_per_group = np.bincount(run_group, minlength=num_groups)
+    full = seqs_per_group == k
+    depths = np.zeros(num_groups, dtype=np.int64)
+    depths[group_ids] = a_o
+    run_keep = full[run_group]
+    rs = run_starts[run_keep]
+    re = run_ends[run_keep]
+    rg = run_group[run_keep]
+    cuts = np.nonzero(np.concatenate([[True], rg[1:] != rg[:-1]]))[0]
+    # emit plain int lists: the list machine consumes them directly, and
+    # slicing one materialized Python list beats creating thousands of
+    # tiny numpy views + per-node tolist conversions downstream
+    k_o_list = k_o.tolist()
+    rs_l = rs.tolist()
+    re_l = re.tolist()
+    for t, cut in enumerate(cuts):
+        nxt = cuts[t + 1] if t + 1 < len(cuts) else len(rs)
+        positions = [k_o_list[rs_l[r] : re_l[r]] for r in range(cut, nxt)]
+        nodes.append(
+            BorderNode(size=int(depths[rg[cut]]), positions=positions)
+        )
+    return nodes

@@ -8,7 +8,7 @@ from typing import Optional, Sequence, TextIO
 
 import numpy as np
 
-from csa_tpu.io import fasta as fio
+from ..io import fasta as fio
 
 from . import runner
 

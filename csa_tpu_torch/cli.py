@@ -14,13 +14,16 @@ M         Convert aligned FASTA -> MSF
 ========  ==========================================================
 
 Modes N, R and A run on ``--device`` (default ``cuda``); I, C, S and M
-are the JAX package's host tools.  Without a CUDA device,
-``--device cuda`` exits non-zero; the CPU runs only when asked for with
-``--device cpu``.  ``CSA_TPU_TORCH_TRACE=<dir>`` wraps the run in
-``torch.profiler`` and writes ``<dir>/trace.json``.
+are host tools.  Without a CUDA device, ``--device cuda`` exits
+non-zero; the CPU runs only when asked for with ``--device cpu``.
+``--verify-rotations`` (modes N and R) scores each chosen rotation
+against sampled alternatives with the pairwise NW kernel on
+``--device`` (:mod:`csa_tpu_torch.rotation.verification`).
+``CSA_TPU_TORCH_TRACE=<dir>`` wraps the run in ``torch.profiler`` and
+writes ``<dir>/trace.json``.
 
     python -m csa_tpu_torch.cli Primates.txt
-    python -m csa_tpu_torch.cli R Primates.txt --device cuda
+    python -m csa_tpu_torch.cli R Primates.txt --device cuda --verify-rotations
 """
 
 from __future__ import annotations
@@ -30,19 +33,44 @@ import os
 import sys
 import time
 
-from csa_tpu.cli import (
-    ALIGNMENT_SUFFIX,
-    CIRCULARIMAGE_SUFFIX,
-    ROTATIONS_SUFFIX,
-    _load,
-    output_filename,
-)
-from csa_tpu.console import banner
-from csa_tpu.io import fasta as fio
-from csa_tpu.rotation.chains import INT_MAX
-
 from . import __version__
 from .config import from_jax_config, scoring_kwargs
+from .console import banner
+from .io import fasta as fio
+from .rotation.chains import INT_MAX
+
+POSITIONS_SUFFIX = "-positions.txt"
+IMAGEMAP_SUFFIX = "-imagemap.txt"
+ROTATIONS_SUFFIX = "-Rotated.fasta"
+ALIGNMENT_SUFFIX = "-Aligned.fasta"
+BLOCKSINFO_SUFFIX = "-Blocks.csv"
+BLOCKSIMAGE_SUFFIX = "-Blocks.bmp"
+CIRCULARIMAGE_SUFFIX = "-CircularAlignment.bmp"
+
+
+def output_filename(inputfilename: str, extra: str) -> str:
+    """Join the input file's basename with a suffix (csamsa.c:44-58)."""
+    base, dot, _ = inputfilename.rpartition(".")
+    if not dot:
+        base = inputfilename
+    return base + extra
+
+
+def _load(args) -> fio.SequenceSet:
+    print(f"> Loading sequences from file <{args.input}> ... ", end="")
+    try:
+        size = os.path.getsize(args.input)
+    except OSError:
+        print()
+        raise SystemExit("\n> ERROR: Sequence file not found")
+    print(f"({size} bytes)")
+    try:
+        seqs = fio.load_fasta(args.input, log=sys.stdout)
+    except fio.FastaError as e:
+        raise SystemExit(f"\n> ERROR: {e}")
+    print(f"> {len(seqs)} sequences successfully loaded")
+    fio.discard_duplicate_rotations(seqs, log=sys.stdout)
+    return seqs
 
 
 def _resolve_device(name: str):
@@ -60,8 +88,7 @@ def _resolve_device(name: str):
 
 
 def run_rotation(args, seqs: fio.SequenceSet):
-    from csa_tpu.report import blocks_report
-
+    from .report import blocks_report
     from .rotation import pipeline as rot
     from .utils import PROFILER
 
@@ -72,6 +99,14 @@ def run_rotation(args, seqs: fio.SequenceSet):
                           log=sys.stdout)
     except rot.RotationError as e:
         raise SystemExit(f"\n> ERROR: {e}")
+    if args.verify_rotations:
+        from .rotation import verification
+
+        with PROFILER.phase("rot.device_verify"):
+            verification.verify_rotations(
+                seqs.encoded_all(), res.rotations, device=args.device,
+                log=sys.stdout,
+            )
     with PROFILER.phase("rot.artifacts"):
         fio.save_rotated(seqs, res.rotations,
                          output_filename(args.input, ROTATIONS_SUFFIX))
@@ -87,9 +122,8 @@ def run_rotation(args, seqs: fio.SequenceSet):
 
 
 def run_alignment(args, seqs: fio.SequenceSet, rotations) -> str:
-    from csa_tpu.tools import files as tools_files
-
     from .align import msa
+    from .tools import files as tools_files
 
     alignfile = output_filename(args.input, ALIGNMENT_SUFFIX)
     print("> Running multiple sequence alignment...")
@@ -129,11 +163,14 @@ def main(argv=None) -> int:
                         help="k-mer packing width of the index engine "
                              "(2..13, default 12)")
     parser.add_argument("--profile", action="store_true")
+    parser.add_argument("--verify-rotations", action="store_true",
+                        help="score chosen vs alternative rotations with "
+                             "the pairwise NW kernel on --device (oracle)")
     parser.add_argument("--version", action="version",
                         version=f"csa-tpu-torch {__version__}")
     args = parser.parse_args(argv)
 
-    from csa_tpu import config
+    from . import config
 
     defaults = config.RunConfig()
     cfg = config.RunConfig(
@@ -144,8 +181,8 @@ def main(argv=None) -> int:
         max_interval=args.max_interval,
         pack_w=args.pack_w if args.pack_w is not None else defaults.pack_w,
     )
-    # the shared host code (merge, DGC, native kernels) reads the
-    # installed config; the port's device code takes its scalars
+    # the host code (merge, DGC, native kernels) reads the installed
+    # config; the device code takes its scalars
     config.set_run_config(cfg)
     args.kw = from_jax_config(cfg)
 
@@ -190,7 +227,7 @@ def main(argv=None) -> int:
                 alignfile = run_alignment(args, seqs, rotations)
 
         if mode in ("N", "I"):
-            from csa_tpu.report import circular_plot
+            from .report import circular_plot
 
             source = alignfile if alignfile else args.input
             out = output_filename(args.input, CIRCULARIMAGE_SUFFIX)
@@ -198,7 +235,7 @@ def main(argv=None) -> int:
                 circular_plot.draw_circular_alignment_plot(source, out)
 
     if mode in ("C", "S", "M"):
-        from csa_tpu.tools import files as tools_files
+        from .tools import files as tools_files
 
         {"C": tools_files.clean_fasta, "S": tools_files.sum_of_pairs_score,
          "M": tools_files.fasta_to_msf}[mode](args.input)

@@ -1,10 +1,14 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface, loaded with :mod:`ctypes`:
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all started together, and the objects are
+linked into ONE shared library with a plain C interface, loaded with
+:mod:`ctypes`:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/libcsa_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c csrc/<name>.cu -o _build/<name>.<pid>.o
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o _build/libcsa_kernels_<hash>.so _build/*.<pid>.o
 
 The library name carries a hash of the sources and flags, so the first
 call after a source edit rebuilds it; a stale library is never loaded.
@@ -36,12 +40,10 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
-COUNTS = {"mscan": 0, "profile_dp": 0}
+COUNTS = {"mscan": 0, "profile_dp": 0, "nw": 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,6 +55,7 @@ _SIGNATURES = {
         _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
         _I, _I, _I, _VP, _VP, _VP,
     ],
+    "csa_nw_scores": [_VP, _VP, _I, _I, _I, _I, _I, _VP, _VP, _VP],
     "csa_smem_optin": [ctypes.POINTER(ctypes.c_int)],
 }
 
@@ -106,16 +109,35 @@ def build(force: bool = False) -> Path:
             "csa_tpu_torch cannot be built"
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    pid = os.getpid()
+    objs = [BUILD_DIR / f"{src.stem}.{pid}.o" for src in sources()]
+    tmp = out.with_suffix(f".{pid}.tmp")
+    try:
+        jobs = []
+        for src, obj in zip(sources(), objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        results = []
+        for cmd, proc in jobs:
+            stdout, stderr = proc.communicate()
+            results.append((cmd, proc.returncode, stdout, stderr))
+        if all(r[1] == 0 for r in results):
+            cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            results.append((cmd, proc.returncode, proc.stdout, proc.stderr))
+        for cmd, rc, stdout, stderr in results:
+            if rc != 0:
+                raise KernelBuildError(
+                    f"nvcc failed ({rc}): {' '.join(cmd)}\n{stdout}\n{stderr}"
+                )
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 

@@ -1,0 +1,236 @@
+"""ctypes loader for the port's native host kernels (its own copy of
+:mod:`csa_tpu.native`, built from ``csa_host.cpp`` beside this file).
+
+The library builds with ``make`` at first use into
+``csa_tpu_torch/_build/libcsa_host_<hash>.so``, named by a hash of the
+source and the Makefile, so a stale library is never loaded and the
+JAX package's directory is never written.  Without a toolchain every
+caller takes its pure-numpy twin; ``chip_smoke.py`` refuses a run in
+which :func:`available` is False.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+_HERE = Path(__file__).resolve().parent
+BUILD_DIR = _HERE.parent / "_build"
+_lib: Optional[ctypes.CDLL] = None
+_tried = False
+
+
+def library_path() -> Path:
+    """Where the library for the current source and Makefile lives."""
+    h = hashlib.sha256()
+    for name in ("csa_host.cpp", "Makefile"):
+        h.update((_HERE / name).read_bytes())
+    return BUILD_DIR / f"libcsa_host_{h.hexdigest()[:16]}.so"
+
+
+def _build() -> Optional[Path]:
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        subprocess.run(
+            ["make", "-s", "-B", "-C", str(_HERE), f"OUT={tmp}"],
+            check=True,
+            capture_output=True,
+            timeout=300,
+        )
+    except (OSError, subprocess.SubprocessError):
+        tmp.unlink(missing_ok=True)
+        return None
+    os.replace(tmp, out)
+    return out
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    global _lib, _tried
+    if _lib is not None or _tried:
+        return _lib
+    _tried = True
+    path = _build()
+    if path is None:
+        return None
+    lib = ctypes.CDLL(str(path))
+    lib.csa_dp_fill.restype = ctypes.c_int32
+    lib.csa_dp_fill.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_void_p,
+        ctypes.c_int32, ctypes.c_void_p,
+    ]
+    lib.csa_pairwise_nw.restype = ctypes.c_int32
+    lib.csa_pairwise_nw.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_int32,
+    ]
+    lib.csa_dgc.restype = ctypes.c_int32
+    lib.csa_dgc.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
+    ]
+    lib.csa_dp_fill_path.restype = ctypes.c_int32
+    lib.csa_dp_fill_path.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_void_p,
+        ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.csa_set_scoring.restype = None
+    lib.csa_set_scoring.argtypes = [
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+    ]
+    lib.csa_anchor_attach.restype = ctypes.c_int32
+    lib.csa_anchor_attach.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    _lib = lib
+    # a scoring installed before the lazy load must reach the kernels
+    from .. import config
+
+    if config.scoring() != config.DEFAULT_SCORING:
+        push_scoring(config.scoring())
+    return _lib
+
+
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def push_scoring(s) -> bool:
+    """Install a :class:`csa_tpu_torch.config.Scoring` into the host kernels;
+    returns False when the library is missing (numpy fallback in use)."""
+    lib = _load()
+    if lib is None:
+        return False
+    lib.csa_set_scoring(
+        int(s.match), int(s.mismatch), int(s.indel), int(s.doublegap)
+    )
+    return True
+
+
+def dp_fill_dirs(
+    row_codes: np.ndarray,
+    scorevector: np.ndarray,
+    i: int,
+    top_row: np.ndarray,
+    edge_rowgap: int,
+):
+    """Native profile NW fill; returns (score, dirs) or None if no lib.
+
+    top_row / edge_rowgap carry the (possibly stale) DP boundary values;
+    see csa_host.cpp.
+    """
+    lib = _load()
+    if lib is None:
+        return None
+    R = len(row_codes)
+    C = len(scorevector)
+    codes = np.ascontiguousarray(row_codes, dtype=np.int8)
+    sv = np.ascontiguousarray(scorevector, dtype=np.int32)
+    top = np.ascontiguousarray(top_row, dtype=np.int32)
+    dirs = np.empty((R + 1, C + 1), dtype=np.int8)
+    score = lib.csa_dp_fill(
+        codes.ctypes.data, R, sv.ctypes.data, C, int(i),
+        top.ctypes.data, int(edge_rowgap), dirs.ctypes.data
+    )
+    return int(score), dirs
+
+
+def dp_fill_path(
+    row_codes: np.ndarray,
+    scorevector: np.ndarray,
+    i: int,
+    top_row: np.ndarray,
+    edge_rowgap: int,
+):
+    """Native fill + backtrack; returns (score, walk-order path codes)
+    or None if no lib.  The direction matrix never crosses into Python
+    (see csa_host.cpp::csa_dp_fill_path)."""
+    lib = _load()
+    if lib is None:
+        return None
+    R = len(row_codes)
+    C = len(scorevector)
+    codes = np.ascontiguousarray(row_codes, dtype=np.int8)
+    sv = np.ascontiguousarray(scorevector, dtype=np.int32)
+    top = np.ascontiguousarray(top_row, dtype=np.int32)
+    path = np.empty(R + C, dtype=np.int8)
+    plen = np.zeros(1, dtype=np.int32)
+    score = lib.csa_dp_fill_path(
+        codes.ctypes.data, R, sv.ctypes.data, C, int(i),
+        top.ctypes.data, int(edge_rowgap),
+        path.ctypes.data, plen.ctypes.data,
+    )
+    if int(plen[0]) == 0 and (R or C):
+        return None  # scratch allocation failure: use the numpy twin
+    return int(score), path[: int(plen[0])]
+
+
+def dgc(usableseqs, strings, numseqs, scorevector, consize, maxnongaps):
+    """Native DeleteGappedColumns; returns the new consize or None.
+
+    Packs the logical [0, consize) window of the usable rows into one
+    contiguous matrix, runs csa_dgc in place, and copies the results back
+    into the caller's per-sequence arrays and (int64) scorevector.
+    """
+    lib = _load()
+    if lib is None:
+        return None
+    packed = np.empty((numseqs, max(consize, 1)), dtype=np.int8)
+    for t in range(numseqs):
+        packed[t, :consize] = strings[usableseqs[t]][:consize]
+    sv32 = np.ascontiguousarray(scorevector[:consize], dtype=np.int32)
+    new_consize = lib.csa_dgc(
+        packed.ctypes.data, numseqs, packed.shape[1],
+        sv32.ctypes.data, consize, maxnongaps,
+    )
+    for t in range(numseqs):
+        strings[usableseqs[t]][:consize] = packed[t, :consize]
+    scorevector[:consize] = sv32
+    return int(new_consize)
+
+
+def anchor_attach(seq_of: np.ndarray, lcp: np.ndarray, cap: np.ndarray,
+                  k: int):
+    """Native mstat/attachment stats over the linear suffix index;
+    returns (att, lb2) int64 arrays or None if no lib (numpy twin in
+    csa_tpu_torch/align/anchors.py)."""
+    lib = _load()
+    if lib is None:
+        return None
+    m = len(lcp)
+    s32 = np.ascontiguousarray(seq_of, dtype=np.int32)
+    l32 = np.ascontiguousarray(lcp, dtype=np.int32)
+    c32 = np.ascontiguousarray(cap, dtype=np.int32)
+    att = np.empty(m, dtype=np.int32)
+    lb2 = np.empty(m, dtype=np.int32)
+    lib.csa_anchor_attach(
+        s32.ctypes.data, l32.ctypes.data, c32.ctypes.data, int(k), m,
+        att.ctypes.data, lb2.ctypes.data,
+    )
+    return att.astype(np.int64), lb2.astype(np.int64)
+
+
+def pairwise_nw(a: np.ndarray, b: np.ndarray):
+    lib = _load()
+    if lib is None:
+        return None
+    aa = np.ascontiguousarray(a, dtype=np.int8)
+    bb = np.ascontiguousarray(b, dtype=np.int8)
+    return int(lib.csa_pairwise_nw(aa.ctypes.data, len(aa), bb.ctypes.data, len(bb)))

@@ -3,7 +3,8 @@
 
 The block stage (index build, collect cascade, suffix and uniqueness
 filters) runs on ``device`` through :func:`..index.engine.rotation_final`;
-the chain linking and selection are the JAX package's exact host code.
+the chain linking and selection are the exact host code of
+:mod:`csa_tpu_torch.rotation.chains`.
 A sequence with duplicate rotations (a periodic input) takes the exact
 host cyclic index, as ``csa_tpu`` does: an algorithmic branch, not a
 device fallback, and it is reported on stderr when taken.
@@ -12,20 +13,34 @@ device fallback, and it is reported on stderr when taken.
 from __future__ import annotations
 
 import sys
-from typing import Optional, TextIO
+from dataclasses import dataclass, field
+from typing import List, Optional, TextIO
 
 import numpy as np
 
-from csa_tpu.index import cyclic
-from csa_tpu.io.fasta import SequenceSet
-from csa_tpu.rotation import chains as chains_mod
-from csa_tpu.rotation.chains import INT_MAX, Block
-from csa_tpu.rotation.pipeline import RotationError, RotationResult
-
-from ..index import engine
+from ..index import cyclic, engine
+from ..io.fasta import SequenceSet
 from ..utils import PROFILER
+from . import chains as chains_mod
+from .chains import INT_MAX, Block
 
-__all__ = ["analyze", "RotationError", "RotationResult"]
+__all__ = ["analyze", "chain_label", "RotationError", "RotationResult"]
+
+
+class RotationError(RuntimeError):
+    pass
+
+
+@dataclass
+class RotationResult:
+    rotations: np.ndarray  # (K,) start offset per sequence
+    blocks_sorted: List[Block]  # all blocks in final (size-sorted) list order
+    num_collected: int
+    num_after_suffix: int
+    num_after_unique: int
+    num_chains: int
+    index: Optional[cyclic.RotationIndex] = None
+    block_depths: np.ndarray = field(default_factory=lambda: np.empty(0))
 
 
 def analyze(
@@ -125,3 +140,45 @@ def analyze(
         index=index,
         block_depths=fdepth[order] if len(order) else np.empty(0),
     )
+
+
+def chain_label(head: Block, seqs: SequenceSet, seq_for_chars: int = 0) -> str:
+    """Render a chain's label string: block characters joined by gap markers.
+
+    Mirrors ``blockLabel`` (nodeslinkedlists.c:128-191): gaps of length <= 7
+    render as that many ``-``; longer gaps render ``-(len)-``; negative
+    intervals move the cursor backwards.  Characters are taken from the
+    chain's occurrence in ``seq_for_chars`` (the reference mixes characters
+    from whichever sequence created each tree node; the strings are equal up
+    to IUPAC normalization).
+    """
+    text = seqs.texts[seq_for_chars]
+    n = len(text)
+    out: List[str] = []
+    cursor = 0
+
+    def put(s: str):
+        nonlocal cursor
+        for ch in s:
+            if cursor < len(out):
+                out[cursor] = ch
+            else:
+                out.extend([" "] * (cursor - len(out)))
+                out.append(ch)
+            cursor += 1
+
+    b: Optional[Block] = head
+    while b is not None:
+        p = int(b.positions[seq_for_chars])
+        chars = "".join(text[(p + j) % n] for j in range(b.depth))
+        put(chars)
+        gap = b.interval if b.nextblock is not None else 0
+        if b.nextblock is not None:
+            if gap < 0:
+                cursor += gap  # reference: labelpos += n (n negative)
+            elif gap > 7:
+                put(f"-({gap})-")
+            else:
+                put("-" * gap)
+        b = b.nextblock
+    return "".join(out[:cursor])

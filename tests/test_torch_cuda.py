@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from csa_tpu_torch import kernels
-from csa_tpu_torch.dp import profile
+from csa_tpu_torch.dp import nw, profile
 from csa_tpu_torch.index import mscan
 
 
@@ -98,3 +98,25 @@ def test_profile_kernel_matches_plain(cuda, case):
     want = profile.profile_paths_plain(items, cuda, **sc)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,la,lb", [(3, 40, 55), (2, 1, 7), (2, 7, 1),
+                                     (4, 131, 62), (1, 1000, 999),
+                                     (2, 5000, 301), (2, 12_001, 77),
+                                     (2, 20_481, 50), (1, 45_000, 9)])
+def test_nw_kernel_matches_plain(cuda, B, la, lb):
+    """Every strip width of csrc/nw.cu, one to three row bands, ragged and
+    edge shapes; exact against the plain version."""
+    rng = np.random.default_rng(B * la + lb)
+    a = torch.from_numpy(rng.integers(0, 4, size=(B, la))).to(cuda)
+    b = torch.from_numpy(rng.integers(0, 4, size=(B, lb))).to(cuda)
+    before = kernels.COUNTS["nw"]
+    got = nw.pairwise_nw_scores(a, b, cuda)
+    assert kernels.COUNTS["nw"] == before + 1
+    want = nw.pairwise_nw_scores_plain(a.to(torch.int32), b.to(torch.int32))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if la * lb <= 1_000_000:
+        host = nw.nw_scores_host(a.cpu().numpy(), b.cpu().numpy())
+        np.testing.assert_array_equal(got.cpu().numpy(), host)

@@ -42,7 +42,7 @@ def test_rotation_final_matches_jax(name):
     want = jengine.rotation_final_jax(enc)
     kernels.reset_counts()
     got = engine.rotation_final(enc, "cpu")
-    assert kernels.COUNTS == {"mscan": 0, "profile_dp": 0}
+    assert set(kernels.COUNTS.values()) == {0}
     assert got.num_collected == want.num_collected
     assert got.num_after_suffix == want.num_after_suffix
     np.testing.assert_array_equal(got.final_start, want.final_start)

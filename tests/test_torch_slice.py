@@ -1,7 +1,8 @@
 """The port's whole slice on the CPU: the CLI (modes N and R) against the
 reference fixtures and against the JAX package run with
-``backend="jax"`` from the same RunConfig, plus the port's guards (no
-JAX import, no silent CPU run, no build without nvcc)."""
+``backend="jax"`` under the same configuration (each package's own
+RunConfig installed), plus the port's guards (no JAX import, no silent
+CPU run, no build without nvcc)."""
 
 import csv
 import io
@@ -19,6 +20,7 @@ from csa_tpu.align import runner as jrunner
 from csa_tpu.io import fasta as fio
 from csa_tpu.rotation import pipeline as jrot
 from csa_tpu_torch import cli, kernels
+from csa_tpu_torch import config as tconfig
 from csa_tpu_torch.align import runner
 from csa_tpu_torch.config import from_jax_config, scoring_kwargs
 from csa_tpu_torch.rotation import pipeline as rot
@@ -47,14 +49,25 @@ def test_cli_full_pipeline_matches_fixtures(name, tmp_path, monkeypatch):
         pathlib.Path(f"{ref}-Aligned.fasta").read_bytes()
 
 
+def _port_config(cfg) -> tconfig.RunConfig:
+    """The port's own RunConfig with the fields of a JAX-package one."""
+    return tconfig.RunConfig(
+        scoring=tconfig.Scoring(*cfg.scoring.as_tuple()),
+        min_block_size=cfg.min_block_size,
+        max_block_size=cfg.max_block_size,
+        max_interval=cfg.max_interval, pack_w=cfg.pack_w)
+
+
 def _both_packages(name, cfg, tmp_path):
     """Rotate + align ``name`` with csa_tpu (backend jax) and the port
-    (device cpu), both driven by ``cfg``; returns the two aligned files."""
+    (device cpu), each under its own package's config built from
+    ``cfg``; returns the two aligned files."""
     seqs = fio.load_fasta(str(FIX / "tiny" / f"{name}.txt"),
                           log=io.StringIO())
     kw = from_jax_config(cfg)
     outs = []
     config.set_run_config(cfg)
+    tconfig.set_run_config(_port_config(cfg))
     try:
         for tag in ("jax", "torch"):
             if tag == "jax":
@@ -74,11 +87,14 @@ def _both_packages(name, cfg, tmp_path):
                                               log=io.StringIO(),
                                               **scoring_kwargs(kw))
             out = tmp_path / f"{name}-{tag}.fasta"
-            jrunner.save_alignment(str(out), result, codes, seqs.names,
-                                   res.rotations, log=io.StringIO())
+            save = jrunner.save_alignment if tag == "jax" else \
+                runner.save_alignment
+            save(str(out), result, codes, seqs.names, res.rotations,
+                 log=io.StringIO())
             outs.append(out.read_bytes())
     finally:
         config.set_run_config(config.RunConfig())
+        tconfig.set_run_config(tconfig.RunConfig())
     return outs
 
 
@@ -115,7 +131,7 @@ def test_cli_rotation_primates_matches_fixtures(tmp_path, monkeypatch):
 def test_cli_profile_and_trace(tmp_path, monkeypatch, capsys):
     """--profile prints the phase breakdown; CSA_TPU_TORCH_TRACE writes a
     torch.profiler Chrome trace."""
-    from csa_tpu.utils.profiling import PROFILER
+    from csa_tpu_torch.utils import PROFILER
 
     monkeypatch.setenv("CSA_TPU_TORCH_TRACE", str(tmp_path / "trace"))
     try:
