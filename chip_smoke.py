@@ -31,7 +31,22 @@ Phases, one JSON line each on stdout:
                 on the card from the same batch, and the NW kernel's
                 launch count (zeroed just before, read just after);
   8. mbp:       rotation mode on 8 x 1 Mbp (seed 7): the port's CLI
-                against the native host engine's CLI on the same machine.
+                against the native host engine's CLI on the same machine;
+  9. band:      the band kernel (one band of the column-sharded DP)
+                against its plain version, exact: rank-0 edge and halo
+                bands, stale tops, Rb = 1 / Cloc = 1, Rb not a multiple of
+                4, non-default scoring, i = 64, Set3's band shapes at 8
+                and 2 ranks (shared memory) and Cloc = 30,000 (global
+                scratch); the band walk against its host walk;
+ 10. seqpar:    dp_path_seqpar on the largest giants of Set3 (16,979 x
+                20,852) and Primates (5,307 x 5,945), stale top rows, at
+                2, 4 and 8 ranks on the one card, against the profile
+                kernel's path and the native host library's, and the walk
+                kernel against its host walk;
+ 11. sharded:   the port's CLI with --backend sharded --mesh 8x1 on
+                Primates and Set3: output against the fixtures, the
+                seqpar dispatches, and the band and profile kernels'
+                launch counts (zeroed just before, read just after).
 Then the card's name and power limit, a JSON line with one entry per
 kernel (its time, the plain version's, the bound, the library call's),
 and the last line {"ok": true, "device": {...}}.  Any failed phase
@@ -67,6 +82,10 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # select, add and three-way max (csrc/nw.cu)
 PROFILE_OPS_PER_CELL = 10
 NW_OPS_PER_CELL = 4
+# the largest giant merges of Set3 and Primates under the JAX package's
+# mesh partition rule
+SET3_GIANT = (16_979, 20_852)
+PRIMATES_GIANT = (5_307, 5_945)
 
 
 def emit(obj) -> None:
@@ -416,7 +435,7 @@ def phase_pipeline(cli, kernels, tools_files):
           "launches": launches, "port_wall_s": walls,
           "native_cli_wall_s": native_walls,
           "interpreter_startup_s": startup})
-    return launches
+    return launches, walls
 
 
 def _oracle_lines(text: str):
@@ -532,6 +551,198 @@ def phase_mbp(cli, rot, kernels, fio):
           "native_cli_R_wall_s": native_wall})
 
 
+def _band_args(torch, np, profile, rng, Rb, Cloc, i, rank0, sc):
+    """One band's inputs on the card: seeded codes and score vector, a
+    random stale top row, and rank 0's edge (j * edge_rowgap) or a random
+    halo as the left column."""
+    sv = rng.integers(0, min(i, 64) + 1, size=(Cloc, 5))
+    colsub, cg, rowgap = profile._channels(
+        torch.from_numpy(sv)[None], torch.tensor([i]), **sc)
+    left = (sc["indel"] * i * np.arange(1, Rb + 1) if rank0
+            else rng.integers(-400, 100, size=Rb))
+    put = lambda a, dt: torch.as_tensor(a, dtype=dt).to("cuda")  # noqa: E731
+    return (put(rng.integers(0, 4, size=Rb), torch.int8),
+            put(colsub[0], torch.int32), put(cg[0], torch.int32),
+            int(rowgap[0]), put(rng.integers(-400, 100, size=Cloc + 1),
+                                torch.int32), put(left, torch.int32))
+
+
+def phase_band(band, stats):
+    import numpy as np
+    import torch
+
+    from csa_tpu_torch.dp import profile
+
+    rng = np.random.default_rng(9)
+    dflt = dict(match=1, mismatch=-1, indel=-1, doublegap=0)
+    nd = dict(match=2, mismatch=-3, indel=-2, doublegap=-1)
+    R, C = SET3_GIANT
+    # (name, Rb, Cloc, i, rank 0, scoring)
+    cases = [
+        ("rank0_edge", 300, 500, 7, True, dflt),
+        ("halo", 300, 500, 7, False, dflt),
+        ("rb1_cloc1", 1, 1, 3, False, dflt),
+        ("rb_odd", 1021, 333, 5, True, dflt),
+        ("non_default_scoring", 700, 900, 6, False, nd),
+        ("i64", 256, 640, 64, False, dflt),
+        ("set3_8_ranks", 2048, -(-C // 8), 9, False, dflt),
+        ("set3_2_ranks_smem", 2048, -(-C // 2), 9, True, dflt),
+        ("cloc_30000_scratch", 2048, 30_000, 9, False, dflt),
+    ]
+    worst = 0
+    for name, Rb, Cloc, i, rank0, sc in cases:
+        args = _band_args(torch, np, profile, rng, Rb, Cloc, i, rank0, sc)
+        scratch = band.scratch_for(Cloc, "cuda")
+        kern = lambda: band.band_fill(*args, scratch=scratch)  # noqa: E731
+        got = kern()
+        want, pms = wall_ms(lambda: band.band_fill_plain(*args))
+        torch.cuda.synchronize()
+        for g, w, what in zip(got, want, ("directions", "bottom", "edge")):
+            check(torch.equal(g, w), f"band {what} differ in case {name}")
+        check(torch.equal(band.unpack_dirs(got[0], Rb, Cloc),
+                          band.unpack_dirs(want[0], Rb, Cloc)),
+              f"band direction codes differ in case {name}")
+        worst = max(worst, max(int((g.long() - w.long()).abs().max())
+                               for g, w in zip(got, want)))
+        ms = cuda_ms(kern, 3)
+        cells = Rb * Cloc
+        # in: codes, colsub, cg, top, left; out: directions, bottom, edge
+        nbytes = (Rb + 24 * Cloc + 4 * (Cloc + 1) + 4 * Rb
+                  + profile.dirs_bytes(Rb, Cloc) + 4 * (Cloc + 1) + 4 * Rb)
+        bms, by = bound(nbytes, PROFILE_OPS_PER_CELL * cells)
+        emit({"phase": "band", "case": name, "Rb": Rb, "Cloc": Cloc,
+              "i": i, "scoring": sc, "shared_memory": scratch is None,
+              "equal": True, "ms": ms, "plain_ms": pms,
+              "gcell_per_s": cells / ms / 1e6, "bound_ms": bms,
+              "bound_by": by})
+        if name == "set3_8_ranks":
+            stats["band"].update(ms=ms, plain_ms=pms, library_ms=None,
+                                 bound_ms=bms, bound_by=by)
+    stats["band"]["max_abs_err"] = worst
+
+
+def phase_seqpar(seqpar, profile, band, kernels, native):
+    import numpy as np
+    import torch
+
+    from csa_tpu_torch.parallel.sharded import make_mesh
+
+    i = 9
+    rng = np.random.default_rng(17)
+    for name, (R, C) in (("set3_largest_giant", SET3_GIANT),
+                         ("primates_largest_giant", PRIMATES_GIANT)):
+        codes = rng.integers(0, 4, size=R).astype(np.int8)
+        sv = rng.integers(0, i + 1, size=(C, 5)).astype(np.int64)
+        top = rng.integers(-60, 10, size=C + 1).astype(np.int64)
+        erg = -11
+        profile.profile_path(codes, sv, i, top, erg, device="cuda")  # warm-up
+        ref, prof_ms = wall_ms(lambda: profile.profile_path(
+            codes, sv, i, top, erg, device="cuda"))
+        nat = native.dp_fill_path(codes, sv, i, top, erg)
+        check(nat is not None and np.array_equal(ref, nat[1]),
+              f"seqpar {name}: the profile kernel's path differs from the "
+              "native one")
+        runs = {}
+        for n in (2, 4, 8):
+            mesh = make_mesh(n, devices=["cuda"])
+            seqpar.dp_path_seqpar(codes, sv, i, mesh, top_row=top,
+                                  edge_rowgap=erg)  # warm-up
+            kernels.reset_counts()
+            got, ms = wall_ms(lambda: seqpar.dp_path_seqpar(
+                codes, sv, i, mesh, top_row=top, edge_rowgap=erg))
+            launches = kernels.COUNTS["band"]
+            nb = -(-R // seqpar.BAND_ROWS)
+            check(launches == n * nb + 1,
+                  f"seqpar {name} at {n} ranks: {launches} band launches, "
+                  f"want {n * nb + 1}")
+            check(np.array_equal(got, ref),
+                  f"seqpar {name} at {n} ranks: path differs from the "
+                  "profile kernel's")
+            # the fill alone, then the walk kernel against its host walk
+            # on the same blocks
+            (blocks, nb, Rb, Cloc), fill_ms = wall_ms(
+                lambda: seqpar.fill_blocks(
+                    codes, sv, i, mesh, band_rows=seqpar.BAND_ROWS,
+                    top_row=top, edge_rowgap=erg, match=1, mismatch=-1,
+                    indel=-1, doublegap=0))
+            walked, walk_ms = wall_ms(lambda: band.band_walk(
+                blocks, R, C, nb=nb, Rb=Rb, Cloc=Cloc))
+            check(np.array_equal(band.band_walk_plain(
+                blocks, R, C, nb=nb, Rb=Rb, Cloc=Cloc), walked),
+                f"seqpar {name} at {n} ranks: the walk kernel differs from "
+                "the host walk")
+            runs[n] = {"ms": ms, "fill_ms": fill_ms, "walk_ms": walk_ms,
+                       "band_launches": launches, "bands": nb,
+                       "band_rows": Rb, "cols_per_rank": Cloc,
+                       "gcell_per_s": R * C / ms / 1e6}
+        emit({"phase": "seqpar", "case": name, "R": R, "C": C, "i": i,
+              "stale_top": True, "equal_profile_kernel": True,
+              "equal_native_host": True, "profile_kernel_ms": prof_ms,
+              "profile_kernel_gcell_per_s": R * C / prof_ms / 1e6,
+              "ranks": runs})
+
+
+def phase_sharded(cli, kernels, tools_files, seqpar, single_walls):
+    from csa_tpu_torch.utils import PROFILER
+
+    calls = []
+    real = seqpar.dp_path_seqpar
+
+    def spy(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    out = {}
+    launches = {}
+    for name in ("Primates", "Set3"):
+        rec = {"single_device_wall_s": single_walls[name]}
+        for backend in ("device", "sharded"):
+            argv = [f"{name}.txt", "--profile"]
+            if backend == "sharded":
+                argv += ["--backend", "sharded", "--mesh", "8x1"]
+            with tempfile.TemporaryDirectory() as tmp:
+                tmp = Path(tmp)
+                copy_fixture(tmp, name)
+                PROFILER.reset()
+                calls.clear()
+                seqpar.dp_path_seqpar = spy
+                kernels.reset_counts()
+                try:
+                    _, wall = run_port_cli(cli, tmp, argv)
+                finally:
+                    seqpar.dp_path_seqpar = real
+                counts = dict(kernels.COUNTS)
+                rot = tmp / f"{name}-Rotated.fasta"
+                aln = tmp / f"{name}-Aligned.fasta"
+                check(rot.read_bytes() == (FIX / f"{name}-Rotated.fasta")
+                      .read_bytes(), f"{name} {backend}: -Rotated.fasta "
+                                     "differs")
+                check(_content_rows(aln) == _content_rows(
+                    FIX / f"{name}-Rotated-Aligned.fasta"),
+                    f"{name} {backend}: aligned rows differ from the fixture")
+                check(tools_files.test_alignment_output(
+                    str(rot), str(aln), log=io.StringIO()),
+                    f"{name} {backend}: integrity check failed")
+            rec[backend] = {
+                "profiled_wall_s": wall,
+                "align.dp_fill_s": PROFILER.phases.get("align.dp_fill"),
+                "dp_device_dispatches":
+                    PROFILER.counters.get("dp_device_dispatches"),
+                "seqpar_dispatches": len(calls), "launches": counts}
+            if backend == "sharded":
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+        check(rec["sharded"]["seqpar_dispatches"] > 0,
+              f"{name}: no merge reached dp_path_seqpar")
+        out[name] = rec
+    check(launches["band"] > 0 and launches["profile_dp"] > 0,
+          f"a kernel of the sharded path was not launched: {launches}")
+    emit({"phase": "sharded", "mesh": "8x1", "rotated_identical": True,
+          "aligned_rows_identical": True, "integrity": True,
+          "launches": launches, "sets": out})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -540,22 +751,26 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from csa_tpu_torch import cli, kernels, native
-    from csa_tpu_torch.dp import nw, profile
+    from csa_tpu_torch.dp import band, nw, profile, seqpar
     from csa_tpu_torch.index import mscan
     from csa_tpu_torch.io import fasta as fio
     from csa_tpu_torch.rotation import pipeline as rot
     from csa_tpu_torch.rotation import verification
     from csa_tpu_torch.tools import files as tools_files
 
-    stats = {"mscan": {}, "profile_dp": {}, "nw": {}}
+    stats = {"mscan": {}, "profile_dp": {}, "nw": {}, "band": {}}
     phase_toolchain(kernels, native)
     phase_build(kernels)
     phase_mscan(mscan, stats)
     phase_profile(profile, stats)
     phase_nw(nw, fio, verification, stats)
-    launches = phase_pipeline(cli, kernels, tools_files)
+    launches, walls = phase_pipeline(cli, kernels, tools_files)
     launches["nw"] = phase_verify(cli, kernels, nw, verification)["nw"]
     phase_mbp(cli, rot, kernels, fio)
+    phase_band(band, stats)
+    phase_seqpar(seqpar, profile, band, kernels, native)
+    launches["band"] = phase_sharded(cli, kernels, tools_files, seqpar,
+                                      walls)["band"]
     check("jax" not in sys.modules, "jax was imported")
     check("csa_tpu" not in sys.modules, "the JAX package was imported")
 
@@ -565,6 +780,8 @@ def main() -> int:
         "profile_dp": ("csa_tpu_torch/csrc/profile_dp.cu",
                        "csa_tpu/dp/pallas_profile.py:83"),
         "nw": ("csa_tpu_torch/csrc/nw.cu", "csa_tpu/dp/pallas_nw.py:38"),
+        "band": ("csa_tpu_torch/csrc/band.cu",
+                 "csa_tpu/dp/pallas_band.py:63"),
     }
     print(smi_line())
     emit({"kernels": [

@@ -14,14 +14,15 @@ from . import runner
 
 
 def align(seqs: fio.SequenceSet, rotations: Sequence[int], *, device,
-          log: Optional[TextIO] = None, match: int = 1, mismatch: int = -1,
-          indel: int = -1, doublegap: int = 0) -> runner.AlignmentResult:
+          mesh=None, log: Optional[TextIO] = None, match: int = 1,
+          mismatch: int = -1, indel: int = -1,
+          doublegap: int = 0) -> runner.AlignmentResult:
     """View the sequences through their rotations and align them."""
     log = log if log is not None else sys.stdout
     rotated = [
         np.roll(e, -int(r)) for e, r in zip(seqs.encoded_all(), rotations)
     ]
-    result = runner.run_alignment(rotated, device=device, log=log,
+    result = runner.run_alignment(rotated, device=device, mesh=mesh, log=log,
                                   match=match, mismatch=mismatch,
                                   indel=indel, doublegap=doublegap)
     result.rotated_codes = rotated  # type: ignore[attr-defined]

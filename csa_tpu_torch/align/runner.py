@@ -66,11 +66,13 @@ class AlignmentResult:
             yield s
             s = s.next
 
-def run_alignment(rotated_codes: List[np.ndarray], *, device,
+def run_alignment(rotated_codes: List[np.ndarray], *, device, mesh=None,
                   log: Optional[TextIO] = None, match: int = 1,
                   mismatch: int = -1, indel: int = -1,
                   doublegap: int = 0) -> AlignmentResult:
-    """PrepareTreeForAlignment + RunAlignment (alignment.c:169-214)."""
+    """PrepareTreeForAlignment + RunAlignment (alignment.c:169-214).
+    ``mesh`` (a :class:`csa_tpu_torch.parallel.sharded.Mesh`) spreads the
+    gap DP over its ranks, as ``--backend sharded`` does in ``csa_tpu``."""
     log = log if log is not None else sys.stdout
     k = len(rotated_codes)
     textsizes = np.array([len(c) for c in rotated_codes], dtype=np.int64)
@@ -114,7 +116,7 @@ def run_alignment(rotated_codes: List[np.ndarray], *, device,
     if deferred:
         gaps = [_gap_codes(seg, rotated_codes) for seg in deferred]
         results = progressive.progressive_dp_batched(
-            gaps, device=device, match=match, mismatch=mismatch,
+            gaps, device=device, mesh=mesh, match=match, mismatch=mismatch,
             indel=indel, doublegap=doublegap,
         )
         for seg, strings in zip(deferred, results):

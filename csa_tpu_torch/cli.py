@@ -16,6 +16,10 @@ M         Convert aligned FASTA -> MSF
 Modes N, R and A run on ``--device`` (default ``cuda``); I, C, S and M
 are host tools.  Without a CUDA device, ``--device cuda`` exits
 non-zero; the CPU runs only when asked for with ``--device cpu``.
+``--backend sharded`` spreads the alignment's gap DP over a mesh of
+``--mesh SEQxPOS`` ranks (default: one per visible card) laid out on
+``--device``'s type, several ranks to a card when there are more ranks
+than cards; rotation stays on the single-device path.
 ``--verify-rotations`` (modes N and R) scores each chosen rotation
 against sampled alternatives with the pairwise NW kernel on
 ``--device`` (:mod:`csa_tpu_torch.rotation.verification`).
@@ -24,6 +28,7 @@ writes ``<dir>/trace.json``.
 
     python -m csa_tpu_torch.cli Primates.txt
     python -m csa_tpu_torch.cli R Primates.txt --device cuda --verify-rotations
+    python -m csa_tpu_torch.cli Set3.txt --backend sharded --mesh 8x1
 """
 
 from __future__ import annotations
@@ -121,13 +126,37 @@ def run_rotation(args, seqs: fio.SequenceSet):
     return res
 
 
+def _parse_mesh(text: str):
+    """``4x2`` -> (4, 2): (seq, pos) rank-mesh axes."""
+    try:
+        seq, _, pos = text.lower().partition("x")
+        shape = (int(seq), int(pos))
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"mesh must look like SEQxPOS (e.g. 4x2), got {text!r}"
+        )
+    if shape[0] < 1 or shape[1] < 1:
+        raise argparse.ArgumentTypeError("mesh axes must be >= 1")
+    return shape
+
+
+def _mesh(args):
+    """The rank mesh of ``--backend sharded`` on ``--device``'s type."""
+    if args.backend != "sharded":
+        return None
+    from .parallel.sharded import make_mesh
+
+    devices = [args.device] if args.device.type == "cpu" else None
+    return make_mesh(shape=args.kw["mesh_shape"], devices=devices)
+
+
 def run_alignment(args, seqs: fio.SequenceSet, rotations) -> str:
     from .align import msa
     from .tools import files as tools_files
 
     alignfile = output_filename(args.input, ALIGNMENT_SUFFIX)
     print("> Running multiple sequence alignment...")
-    result = msa.align(seqs, rotations, device=args.device,
+    result = msa.align(seqs, rotations, device=args.device, mesh=_mesh(args),
                        **scoring_kwargs(args.kw))
     msa.save_alignment(seqs, rotations, result, alignfile)
     rotfile = output_filename(args.input, ROTATIONS_SUFFIX)
@@ -147,6 +176,17 @@ def main(argv=None) -> int:
                         help="multi-FASTA file")
     parser.add_argument("--device", default="cuda",
                         help="torch device for modes N/R/A (default cuda)")
+    parser.add_argument("--backend", choices=["device", "sharded"],
+                        default="device",
+                        help="device: one device (default); sharded: the "
+                             "alignment's gap DP over a mesh of ranks on "
+                             "--device's type (rotation stays on one "
+                             "device)")
+    parser.add_argument("--mesh", type=_parse_mesh, default=None,
+                        metavar="SEQxPOS",
+                        help="rank mesh of --backend sharded, e.g. 8x1 "
+                             "(default: one rank per visible card); ranks "
+                             "may share a card")
     parser.add_argument("--min-block-size", type=int, default=10)
     parser.add_argument("--max-block-size", type=int, default=INT_MAX)
     parser.add_argument("--max-interval", type=int, default=INT_MAX)
@@ -180,6 +220,7 @@ def main(argv=None) -> int:
         max_block_size=args.max_block_size,
         max_interval=args.max_interval,
         pack_w=args.pack_w if args.pack_w is not None else defaults.pack_w,
+        mesh_shape=args.mesh,
     )
     # the host code (merge, DGC, native kernels) reads the installed
     # config; the device code takes its scalars

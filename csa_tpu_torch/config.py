@@ -1,5 +1,5 @@
 """Run-time configuration of the port (its own copy of
-:mod:`csa_tpu.config`, without the JAX package's mesh and DP-gate fields).
+:mod:`csa_tpu.config`, without the JAX package's DP-gate fields).
 
 * :class:`Scoring` is the progressive-DP scoring matrix.  The host merge
   and DeleteGappedColumns read it through module globals of
@@ -8,7 +8,8 @@
   as keyword arguments (:func:`from_jax_config`, :func:`scoring_kwargs`),
   and ``progressive_dp_batched`` raises when the two disagree.
 * :class:`RunConfig` holds the pipeline-level knobs: block-size and
-  interval bounds and the index engine's k-mer packing width.
+  interval bounds, the index engine's k-mer packing width and the rank
+  mesh shape of ``--backend sharded``.
 
 :func:`from_jax_config` turns any object with the same attributes (the
 port's :class:`RunConfig`, or the JAX package's) into the scalar keyword
@@ -47,6 +48,7 @@ class RunConfig:
     max_block_size: int = INT_MAX     # csamsa.c:574
     max_interval: int = INT_MAX       # csamsa.c:575
     pack_w: int = 12                  # k-mer packing width of the index
+    mesh_shape: tuple | None = None   # (seq, pos) ranks, --backend sharded
 
 
 DEFAULT_SCORING = Scoring()
@@ -94,6 +96,8 @@ def from_jax_config(cfg) -> dict:
         "max_interval": int(cfg.max_interval),
         "min_block_size": int(cfg.min_block_size),
         "max_block_size": int(cfg.max_block_size),
+        "mesh_shape": (tuple(int(n) for n in cfg.mesh_shape)
+                       if cfg.mesh_shape else None),
     }
 
 

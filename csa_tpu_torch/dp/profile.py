@@ -6,8 +6,10 @@
 ``(row_codes, scorevector, i, top_row, edge_rowgap)`` items as
 ``csa_tpu.dp.pallas_profile.profile_paths_pallas`` (the output of
 ``GapProgressiveState.prepare``) and returns the same walk-order path
-codes (D_DIAG 0, D_LEFT 1, D_UP 2, from (R, C) back to (0, 0)), so
-``csa_tpu.align.progressive._path_to_maps`` consumes them unchanged.
+codes (D_DIAG 0, D_LEFT 1, D_UP 2, from (R, C) back to (0, 0)), which
+:func:`csa_tpu_torch.align.progressive._path_to_maps` consumes.
+:func:`profile_paths_sharded` splits a batch over the ranks of a mesh
+(the counterpart of ``csa_tpu.dp.wavefront.dp_paths_device_sharded``).
 
 On a CUDA device the batch goes to the hand-written kernel
 (``csrc/profile_dp.cu``): one block per gap fills the DP by
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..parallel.sharded import join_streams, on_rank, rank_streams
 
 D_DIAG, D_LEFT, D_UP = 0, 1, 2
 GAP = 4
@@ -96,6 +99,15 @@ def profile_paths(items: Sequence[tuple], device, *, match: int = 1,
         raise ValueError(f"profile_paths: no kernel for device {device}")
     if not items:
         return []
+    return _collect(*_launch_paths(items, device, match=match,
+                                   mismatch=mismatch, indel=indel,
+                                   doublegap=doublegap))
+
+
+def _launch_paths(items: Sequence[tuple], device, *, match, mismatch,
+                  indel, doublegap):
+    """Upload a batch and launch the kernel on ``device``'s current
+    stream; returns the device (paths, nsteps) without waiting."""
     codes, sv, top, iv, erg, rr, cc = _pad_items(items)
     G, Rmax = codes.shape
     Cmax = sv.shape[1]
@@ -132,9 +144,50 @@ def profile_paths(items: Sequence[tuple], device, *, match: int = 1,
         threads, G, paths.data_ptr(), nsteps.data_ptr(),
         kernels.stream_ptr(device),
     )
+    return paths, nsteps
+
+
+def _collect(paths: torch.Tensor, nsteps: torch.Tensor) -> List[np.ndarray]:
     paths_h = paths.cpu().numpy()
     n_h = nsteps.cpu().numpy()
-    return [paths_h[g, : int(n_h[g])].copy() for g in range(G)]
+    return [paths_h[g, : int(n_h[g])].copy() for g in range(len(n_h))]
+
+
+def rank_chunks(n_items: int, n_ranks: int) -> List[slice]:
+    """Contiguous per-rank slices of a batch, as the ``P("gap")`` shard of
+    ``csa_tpu.dp.wavefront._pad_batch(items, g_multiple=n_ranks)`` cuts
+    it: the batch is padded to ``max(8, 2^k) >= n_items``, rounded up to
+    a multiple of ``n_ranks``, and each rank takes an equal share."""
+    gp = max(8, 1 << (n_items - 1).bit_length())
+    per = -(-gp // n_ranks)
+    return [slice(min(d * per, n_items), min((d + 1) * per, n_items))
+            for d in range(n_ranks)]
+
+
+def profile_paths_sharded(items: Sequence[tuple], mesh, *, match: int = 1,
+                          mismatch: int = -1, indel: int = -1,
+                          doublegap: int = 0) -> List[np.ndarray]:
+    """:func:`profile_paths` with the batch split over the ranks of
+    ``mesh`` (:func:`rank_chunks`): one launch per rank with items, on the
+    rank's device and stream, so the ranks of one card overlap; results
+    in item order."""
+    sc = dict(match=match, mismatch=mismatch, indel=indel,
+              doublegap=doublegap)
+    chunks = rank_chunks(len(items), mesh.size)
+    streams = rank_streams(mesh)
+    launched = []
+    for dev, stream, chunk in zip(mesh.devices, streams, chunks):
+        part = items[chunk]
+        if not part:
+            continue
+        if dev.type != "cuda":  # paths now (the CPU), or it raises
+            launched.append(profile_paths(part, dev, **sc))
+            continue
+        with on_rank(stream):
+            launched.append(_launch_paths(part, dev, **sc))
+    join_streams(streams)  # the device results are ready from here on
+    return [p for res in launched
+            for p in (res if isinstance(res, list) else _collect(*res))]
 
 
 def profile_paths_plain(items: Sequence[tuple], device, *, match: int = 1,

@@ -43,7 +43,7 @@ BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
-COUNTS = {"mscan": 0, "profile_dp": 0, "nw": 0}
+COUNTS = {"mscan": 0, "profile_dp": 0, "nw": 0, "band": 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +56,10 @@ _SIGNATURES = {
         _I, _I, _I, _VP, _VP, _VP,
     ],
     "csa_nw_scores": [_VP, _VP, _I, _I, _I, _I, _I, _VP, _VP, _VP],
+    "csa_band_fill": [
+        _VP, _I, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP,
+    ],
+    "csa_band_walk": [_VP, _LL, _I, _I, _I, _I, _I, _VP, _VP, _VP],
     "csa_smem_optin": [ctypes.POINTER(ctypes.c_int)],
 }
 

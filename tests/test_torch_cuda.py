@@ -11,8 +11,9 @@ import pytest
 import torch
 
 from csa_tpu_torch import kernels
-from csa_tpu_torch.dp import nw, profile
+from csa_tpu_torch.dp import band, nw, profile, seqpar
 from csa_tpu_torch.index import mscan
+from csa_tpu_torch.parallel.sharded import make_mesh
 
 
 @pytest.fixture
@@ -120,3 +121,59 @@ def test_nw_kernel_matches_plain(cuda, B, la, lb):
     if la * lb <= 1_000_000:
         host = nw.nw_scores_host(a.cpu().numpy(), b.cpu().numpy())
         np.testing.assert_array_equal(got.cpu().numpy(), host)
+
+
+def _band_args(rng, Rb, Cloc, i, rank0, dev):
+    """One band's inputs: seeded codes and score vector, a stale top row,
+    and a rank-0 edge (j * edge_rowgap) or random halo as left column."""
+    sv = rng.integers(0, min(i, 64) + 1, size=(Cloc, 5))
+    colsub, cg, rowgap = profile._channels(
+        torch.from_numpy(sv)[None], torch.tensor([i]), match=1, mismatch=-1,
+        indel=-1, doublegap=0)
+    left = (-i * np.arange(1, Rb + 1) if rank0
+            else rng.integers(-400, 100, size=Rb))
+    put = lambda a, dt: torch.as_tensor(a, dtype=dt).to(dev)  # noqa: E731
+    return (put(rng.integers(0, 4, size=Rb), torch.int8),
+            put(colsub[0], torch.int32), put(cg[0], torch.int32),
+            int(rowgap[0]), put(rng.integers(-400, 100, size=Cloc + 1),
+                                torch.int32), put(left, torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Rb,Cloc,i,rank0", [
+    (37, 301, 5, True),          # rank 0's edge band, Rb not a multiple of 4
+    (256, 129, 64, False),       # a halo band, i = 64
+    (16, 30_000, 9, False),      # global scratch (3 x 30,001 int32)
+])
+def test_band_kernel_matches_plain(cuda, Rb, Cloc, i, rank0):
+    rng = np.random.default_rng(Rb + Cloc)
+    args = _band_args(rng, Rb, Cloc, i, rank0, cuda)
+    scratch = band.scratch_for(Cloc, cuda)
+    assert (scratch is not None) == (Cloc == 30_000)
+    before = kernels.COUNTS["band"]
+    got = band.band_fill(*args, scratch=scratch)
+    assert kernels.COUNTS["band"] == before + 1
+    want = band.band_fill_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_ranks", [2, 4])
+def test_dp_path_seqpar_matches_profile_kernel(cuda, n_ranks):
+    """Ranks sharing the one card, a stale top row: the band path equals
+    the single-device profile kernel's."""
+    rng = np.random.default_rng(n_ranks)
+    R, C, i = 700, 901, 7
+    codes = rng.integers(0, 4, size=R)
+    sv = rng.integers(0, i + 1, size=(C, 5))
+    top = rng.integers(-60, 10, size=C + 1)
+    mesh = make_mesh(n_ranks, devices=[cuda])
+    before = kernels.COUNTS["band"]
+    got = seqpar.dp_path_seqpar(codes, sv, i, mesh, band_rows=128,
+                                top_row=top, edge_rowgap=-5)
+    # 6 bands on each rank, then one walk
+    assert kernels.COUNTS["band"] == before + 6 * n_ranks + 1
+    want = profile.profile_path(codes, sv, i, top, -5, device=cuda)
+    np.testing.assert_array_equal(got, want)

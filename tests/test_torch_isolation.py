@@ -69,15 +69,19 @@ def test_every_port_module_imports_with_jax_refused(tmp_path):
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("mode", ["N", "R", "I", "C", "S", "M"])
+@pytest.mark.parametrize("mode", ["N", "R", "I", "C", "S", "M", "sharded"])
 def test_cli_mode_runs_with_jax_refused(mode, tmp_path):
     """Each mode of the port's CLI on a tiny set, on the CPU, in a process
     that refuses csa_tpu and jax.  S and M read the aligned file that mode
     N writes first; I draws the Mammals alignment fixture (the tiny sets
-    are too short for the plot)."""
+    are too short for the plot); "sharded" is mode N with --backend
+    sharded on a CPU mesh of 2 ranks."""
     (tmp_path / "t1.txt").write_bytes((FIX / "tiny" / "t1.txt").read_bytes())
     runs = [["t1.txt", "--device", "cpu"]]
-    if mode == "R":
+    if mode == "sharded":
+        runs = [["t1.txt", "--device", "cpu", "--backend", "sharded",
+                 "--mesh", "2x1"]]
+    elif mode == "R":
         runs = [["R", "t1.txt", "--device", "cpu", "--verify-rotations"]]
     elif mode == "C":
         runs = [["C", "t1.txt"]]
@@ -91,7 +95,8 @@ def test_cli_mode_runs_with_jax_refused(mode, tmp_path):
         f"assert cli.main({argv!r}) == 0\n" for argv in runs)
     proc = _run_blocked(code, tmp_path)
     assert proc.returncode == 0, proc.stderr
-    expect = {"N": "t1-Aligned.fasta", "R": "t1-Rotated.fasta",
+    expect = {"N": "t1-Aligned.fasta", "sharded": "t1-Aligned.fasta",
+              "R": "t1-Rotated.fasta",
               "I": "Mammals-Rotated-Aligned-CircularAlignment.bmp",
               "C": "Clean-t1.txt", "S": None, "M": "t1-Aligned.msf"}[mode]
     if expect:
