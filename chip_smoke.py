@@ -13,9 +13,14 @@ Phases, one JSON line each on stdout:
   3. mscan:     kernel against its plain version, every option, at the
                 collect cascade's shapes (Primates, 8 x 1 Mbp), with
                 torch.cummax / torch.cummin timed beside it;
-  4. profile:   the profile-DP kernel's paths against the plain version's
-                (ragged stale batch, non-default scoring, i = 64, R or
-                C = 1, 8 x 8192^2, one 17k x 28k gap);
+  4. profile:   the profile-DP kernel's paths against the plain version's,
+                exact (ragged stale batch, non-default scoring, i = 64, R
+                or C = 1, tile multiples and +-1, a gap below one tile, a
+                giant among tiny gaps, stale + scoring (2, -3, -2, -1) +
+                i = 64, C = 30,000, two launches on two streams); 8 x
+                8192^2 and Set3's largest giant timed on the device (fill
+                and walk apart, other tile shapes beside) with the tiles,
+                the grid and the serial floor;
   5. nw:        the NW kernel's scores against the plain version's, exact:
                 the Primates oracle batch (135 x 17,408^2), ragged and
                 edge shapes, every strip width, several row bands; and 4
@@ -297,31 +302,83 @@ def _profile_items(np, rng, shapes, i_of, stale, sc):
     return items
 
 
-def phase_profile(profile, stats):
+def _profile_timed(np, profile, items, sc):
+    """Device milliseconds (CUDA events) of one uploaded batch: fill and
+    walk apart, and the two together as a launch makes them."""
+    b = profile._upload(items, "cuda", **sc)
+    rr = np.array([len(it[0]) for it in items])
+    cc = np.array([len(it[1]) for it in items])
+    grids = [profile.tile_grid(int(r), int(c)) for r, c in zip(rr, cc)]
+    return {"strip": b["strip"], "tile_rows": 32 * b["strip"],
+            "tile_cols": b["tile_cols"], "tiles": b["T"],
+            "grid_blocks": b["workers"], "block_threads": 32,
+            "tile_diagonals": max(a + c - 1 for a, c in grids),
+            "fill_ms": cuda_ms(lambda: profile._launch_fill(b), 5),
+            "walk_ms": cuda_ms(lambda: profile._launch_walk(b), 5),
+            "ms": cuda_ms(lambda: profile._launch(b), 5)}
+
+
+def _profile_variants(np, profile, items, sc):
+    """The same batch under other tile shapes and worker counts."""
+    keep = (profile.STRIP, profile.TILE_COLS, profile.WORKERS_PER_SM)
+    out = []
+    try:
+        for strip, cols, per_sm in [(8, 256, 4), (16, 256, 4), (8, 512, 4),
+                                    (16, 512, 4), (8, 128, 4), (8, 256, 2),
+                                    (8, 256, 8), (8, 256, 4)]:
+            profile.STRIP, profile.TILE_COLS = strip, cols
+            profile.WORKERS_PER_SM = per_sm
+            t = _profile_timed(np, profile, items, sc)
+            out.append({"workers_per_sm": per_sm, **{k: t[k] for k in (
+                "tile_rows", "tile_cols", "tiles", "grid_blocks", "fill_ms",
+                "walk_ms")}})
+    finally:
+        profile.STRIP, profile.TILE_COLS, profile.WORKERS_PER_SM = keep
+    return out
+
+
+def phase_profile(profile, kernels, stats):
     import numpy as np
+
+    from csa_tpu_torch.parallel.sharded import make_mesh
 
     rng = np.random.default_rng(5)
     rand = lambda lo, hi, g: [  # noqa: E731
         (int(rng.integers(lo, hi)), int(rng.integers(lo, hi)))
         for _ in range(g)]
     i16 = lambda r: int(r.integers(1, 17))  # noqa: E731
+    i64 = lambda r: 64  # noqa: E731
     nd = dict(match=3, mismatch=-2, indel=-4, doublegap=-1)
+    nd2 = dict(match=2, mismatch=-3, indel=-2, doublegap=-1)
+    Tr, Tc = profile.tile_rows(), profile.TILE_COLS
+    # (name, shapes, i, stale boundaries, scoring, timed on the device)
     cases = [
-        ("ragged_stale", rand(1, 3000, 16), i16, True, {}),
-        ("non_default_scoring", rand(500, 2500, 4), i16, False, nd),
-        ("i64", rand(500, 2000, 4), lambda r: 64, False, {}),
-        ("thin", [(1, 5000), (5000, 1), (1, 1)], i16, False, {}),
-        ("batch_8x8192", [(8192, 8192)] * 8, i16, False, {}),
-        ("giant_17kx28k", [(17_000, 28_000)], i16, True, {}),
+        ("ragged_stale", rand(1, 3000, 16), i16, True, {}, False),
+        ("non_default_scoring", rand(500, 2500, 4), i16, False, nd, False),
+        ("i64", rand(500, 2000, 4), i64, False, {}, False),
+        ("thin", [(1, 5000), (5000, 1), (1, 1)], i16, False, {}, False),
+        ("tile_edges", [(Tr, Tc), (Tr + 1, Tc + 1), (Tr - 1, Tc - 1),
+                        (2 * Tr, 3 * Tc), (2 * Tr + 1, 3 * Tc - 1),
+                        (2 * Tr - 1, 3 * Tc + 1)], i16, True, {}, False),
+        ("below_one_tile", [(Tr // 7, Tc // 3)], i16, True, {}, False),
+        ("giant_among_tiny", rand(1, 20, 20) + [(6000, 9000)]
+         + rand(1, 20, 20), i16, True, {}, False),
+        ("stale_scoring_i64", rand(500, 2500, 4), i64, True, nd2, False),
+        ("wide_30000", [(2000, 30_000)], i16, True, {}, False),
+        ("serial_tile_row", [(Tr, 32_768)], i16, False, {}, True),
+        ("batch_8x8192", [(8192, 8192)] * 8, i16, False, {}, True),
+        ("set3_giant", [SET3_GIANT], i16, True, {}, True),
     ]
     worst = 0
-    for name, shapes, i_of, stale, sc in cases:
+    step_us = None
+    for name, shapes, i_of, stale, sc, timed in cases:
         items = _profile_items(np, rng, shapes, i_of, stale, sc)
         cells = sum(R * C for R, C in shapes)
         profile.profile_paths(items, "cuda", **sc)  # warm-up
         want, pms = wall_ms(lambda: profile.profile_paths_plain(
             items, "cuda", **sc))
-        got, ms = wall_ms(lambda: profile.profile_paths(items, "cuda", **sc))
+        got, wall = wall_ms(lambda: profile.profile_paths(
+            items, "cuda", **sc))
         for a, b in zip(got, want):
             check(len(a) == len(b) and np.array_equal(a, b),
                   f"profile paths differ in case {name}")
@@ -329,13 +386,46 @@ def phase_profile(profile, stats):
         # codes (1 B), score vector (5 x 4 B), top row (4 B) in, path out
         nbytes = sum(R + 24 * C + 4 + (R + C) for R, C in shapes)
         bms, by = bound(nbytes, PROFILE_OPS_PER_CELL * cells)
-        emit({"phase": "profile", "case": name, "gaps": len(items),
-              "cells": cells, "equal": True, "ms": ms, "plain_ms": pms,
-              "kernel_gcell_per_s": cells / ms / 1e6,
-              "bound_ms": bms, "bound_by": by})
+        rec = {"phase": "profile", "case": name, "gaps": len(items),
+               "cells": cells, "equal": True, "wall_ms": wall,
+               "plain_ms": pms, "bound_ms": bms, "bound_by": by}
+        if timed:
+            rec.update(_profile_timed(np, profile, items, sc))
+            rec["fill_gcell_per_s"] = cells / rec["fill_ms"] / 1e6
+            if name == "serial_tile_row":
+                # one tile row: the tiles run one after the other, so the
+                # fill's time over its steps is the time of one step
+                step_us = rec["fill_ms"] * 1e3 / (
+                    rec["tiles"] * (Tc + 31))
+                rec["step_us"] = step_us
+            else:
+                rec["variants"] = _profile_variants(np, profile, items, sc)
+            # the serial floor of this design: the tile anti-diagonals
+            # one after the other, Tc + 31 steps each
+            rec["serial_floor_ms"] = (rec["tile_diagonals"] * (Tc + 31)
+                                      * step_us / 1e3)
+        emit(rec)
         if name == "batch_8x8192":
-            stats["profile_dp"].update(ms=ms, plain_ms=pms, library_ms=None,
-                                       bound_ms=bms, bound_by=by)
+            stats["profile_dp"].update(
+                ms=rec["ms"], plain_ms=pms, library_ms=None, bound_ms=bms,
+                bound_by=by, wall_ms=wall, fill_ms=rec["fill_ms"],
+                walk_ms=rec["walk_ms"],
+                serial_floor_ms=rec["serial_floor_ms"])
+    # two launches at once on two streams of the one card (the sharded
+    # path's shape), each exact
+    items = _profile_items(np, rng, [(4096, 4096)] * 6 + rand(1, 3000, 6),
+                           i16, True, {})
+    mesh = make_mesh(2, devices=["cuda"])
+    before = kernels.COUNTS["profile_dp"]
+    got, wall = wall_ms(lambda: profile.profile_paths_sharded(items, mesh))
+    check(kernels.COUNTS["profile_dp"] == before + 2,
+          "profile_paths_sharded on 2 ranks did not launch twice")
+    want = profile.profile_paths_plain(items, "cuda")
+    for a, b in zip(got, want):
+        check(len(a) == len(b) and np.array_equal(a, b),
+              "profile paths differ in case two_streams")
+    emit({"phase": "profile", "case": "two_streams", "gaps": len(items),
+          "launches": 2, "equal": True, "wall_ms": wall})
     stats["profile_dp"]["max_abs_err"] = worst
 
 
@@ -608,7 +698,7 @@ def phase_band(band, stats):
         cells = Rb * Cloc
         # in: codes, colsub, cg, top, left; out: directions, bottom, edge
         nbytes = (Rb + 24 * Cloc + 4 * (Cloc + 1) + 4 * Rb
-                  + profile.dirs_bytes(Rb, Cloc) + 4 * (Cloc + 1) + 4 * Rb)
+                  + band.dirs_bytes(Rb, Cloc) + 4 * (Cloc + 1) + 4 * Rb)
         bms, by = bound(nbytes, PROFILE_OPS_PER_CELL * cells)
         emit({"phase": "band", "case": name, "Rb": Rb, "Cloc": Cloc,
               "i": i, "scoring": sc, "shared_memory": scratch is None,
@@ -728,7 +818,9 @@ def phase_sharded(cli, kernels, tools_files, seqpar, single_walls):
                 "align.dp_fill_s": PROFILER.phases.get("align.dp_fill"),
                 "dp_device_dispatches":
                     PROFILER.counters.get("dp_device_dispatches"),
-                "seqpar_dispatches": len(calls), "launches": counts}
+                "seqpar_dispatches": len(calls), "launches": counts,
+                "phases_s": {k: round(v, 4)
+                             for k, v in PROFILER.phases.items()}}
             if backend == "sharded":
                 for k, v in counts.items():
                     launches[k] = launches.get(k, 0) + v
@@ -762,7 +854,7 @@ def main() -> int:
     phase_toolchain(kernels, native)
     phase_build(kernels)
     phase_mscan(mscan, stats)
-    phase_profile(profile, stats)
+    phase_profile(profile, kernels, stats)
     phase_nw(nw, fio, verification, stats)
     launches, walls = phase_pipeline(cli, kernels, tools_files)
     launches["nw"] = phase_verify(cli, kernels, nw, verification)["nw"]

@@ -618,7 +618,7 @@ class GapProgressiveState:
         ]
 
 # packed direction bytes one batched launch may hold (80 GB card; a
-# Set3 ~17k x 28k merge needs ~0.3 GB in the kernel's layout)
+# Set3 ~17k x 28k merge needs ~0.12 GB in the kernel's tiled layout)
 BATCH_DIRS_BYTES = 8 << 30
 # with a mesh: the JAX package's cap on a padded batch (Gp x (R + 512) x
 # (C + 512) direction bytes, csa_tpu/align/progressive.py:583), which

@@ -38,7 +38,7 @@
 // R + C to about (nb + D - 1) * (Rb + Cloc).
 //
 // Directions: D_DIAG=0, D_LEFT=1, D_UP=2, 2 bits a cell, packed by
-// diagonal as in profile_dp.cu: byte (t, q) holds cells (t-c, c) for
+// diagonal: byte (t, q) holds cells (t-c, c) for
 // c = 4q..4q+3, so a band's block is (Rb+Cloc+1) x Q bytes with
 // Q = ceil((Cloc+1)/4); boundary cells hold 0.
 //

@@ -5,10 +5,10 @@
 columns of the profile-DP recurrence (``csrc/profile_dp.cu``), with the
 top boundary row (``Cloc + 1`` values, index 0 the left-halo element)
 and the left boundary column (``Rb`` values) given.  It returns the
-band's directions packed by anti-diagonal (the layout of
-``csrc/profile_dp.cu``: ``(Rb + Cloc + 1) x ceil((Cloc + 1) / 4)``
-bytes, 2 bits a cell), its bottom row (``Cloc + 1`` values, index 0 the
-left boundary) and its right-edge column (``Rb`` values, the halo of
+band's directions packed by anti-diagonal (``csrc/band.cu``'s layout:
+``(Rb + Cloc + 1) x ceil((Cloc + 1) / 4)`` bytes, 2 bits a cell), its
+bottom row (``Cloc + 1`` values, index 0 the left boundary) and its
+right-edge column (``Rb`` values, the halo of
 the next rank).  :func:`band_walk` walks the per-(rank, band) blocks
 from (R, C) back to (0, 0) and returns the walk-order path codes.
 
@@ -27,7 +27,15 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .profile import D_DIAG, D_LEFT, D_UP, THREADS_MAX, dirs_bytes
+from .profile import D_DIAG, D_LEFT, D_UP
+
+THREADS_MAX = 1024
+
+
+def dirs_bytes(Rb: int, Cloc: int) -> int:
+    """Packed direction bytes of one band in the kernel's diagonal
+    layout."""
+    return (Rb + Cloc + 1) * ((Cloc + 4) // 4)
 
 
 def scratch_for(Cloc: int, device) -> Optional[torch.Tensor]:

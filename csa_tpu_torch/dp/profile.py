@@ -12,13 +12,19 @@ codes (D_DIAG 0, D_LEFT 1, D_UP 2, from (R, C) back to (0, 0)), which
 (the counterpart of ``csa_tpu.dp.wavefront.dp_paths_device_sharded``).
 
 On a CUDA device the batch goes to the hand-written kernel
-(``csrc/profile_dp.cu``): one block per gap fills the DP by
-anti-diagonals, a second kernel walks the packed directions, and only the
-paths come back.  The kernel takes each gap's exact R and C; there is no
-shape bucketing.  On the CPU the plain version runs: the row-by-row
-closed form of ``csa_tpu/dp/wavefront.py:_row_step`` (the left-gap chain
-as a ``cummax``), batched over gaps, then a host walk of the direction
-matrix.  Any other device raises.
+(``csrc/profile_dp.cu``) as ONE launch of many workers: every gap is cut
+into tiles of ``TILE_ROWS x TILE_COLS`` cells, :func:`tile_order` numbers
+the tiles of the whole batch so that a tile's predecessors come first,
+and each worker (a warp that keeps its strip of the tile in registers)
+takes tickets from a counter, waits for the ready flags of the tile above
+and the tile to the left, fills its tile and sets its own flag.  A second
+kernel walks the packed directions (one warp per gap, a tile at a time
+through shared memory), and only the paths come back.  The kernel takes
+each gap's exact R and C from per-gap offsets into concatenated arrays;
+there is no padding and no shape bucketing.  On the CPU the plain version
+runs: the row-by-row closed form of ``csa_tpu/dp/wavefront.py:_row_step``
+(the left-gap chain as a ``cummax``), batched over gaps, then a host walk
+of the direction matrix.  Any other device raises.
 
 Scoring is explicit: ``match``, ``mismatch``, ``indel``, ``doublegap``
 (see :func:`csa_tpu_torch.config.from_jax_config`).
@@ -36,7 +42,12 @@ from ..parallel.sharded import join_streams, on_rank, rank_streams
 
 D_DIAG, D_LEFT, D_UP = 0, 1, 2
 GAP = 4
-THREADS_MAX = 1024
+# the kernel's tile: a warp of LANES lanes, STRIP rows a lane (8 or 16),
+# TILE_COLS columns (a power of two, 32..1024); WORKERS_PER_SM warps an SM
+LANES = 32
+STRIP = 8
+TILE_COLS = 256
+WORKERS_PER_SM = 4
 
 
 def _pad_items(items: Sequence[tuple]):
@@ -81,9 +92,88 @@ def default_top_row(scorevector, i: int, *, indel: int, doublegap: int):
     return np.concatenate([[np.int64(0)], np.cumsum(colgap)])
 
 
+def tile_rows() -> int:
+    return LANES * STRIP
+
+
+def tile_grid(R: int, C: int):
+    """(tile rows, tile columns) of an R x C gap."""
+    return -(-R // tile_rows()), -(-C // TILE_COLS)
+
+
+def tile_bytes() -> int:
+    """Direction bytes of one tile, 2 bits a cell; an edge tile takes as
+    many."""
+    return tile_rows() * TILE_COLS // 4
+
+
 def dirs_bytes(R: int, C: int) -> int:
-    """Packed direction bytes of one gap in the kernel's diagonal layout."""
-    return (R + C + 1) * ((C + 4) // 4)
+    """Packed direction bytes of one gap in the kernel's tiled layout."""
+    ntr, ntc = tile_grid(R, C)
+    return ntr * ntc * tile_bytes()
+
+
+def dirs_address(R: int, C: int, j, c):
+    """(word, bit) of cell (j, c) inside a gap's direction store,
+    1 <= j <= R, 1 <= c <= C (arrays broadcast): the kernel's addressing.
+    The store is words of ``2 * STRIP`` bits.  Tiles lie row-major; inside
+    a tile, word ``((x + t) mod TILE_COLS) * LANES + t`` holds column x of
+    lane t's strip in two planes of STRIP bits, row k of the strip at bit
+    ``STRIP - 1 - k`` of each: the low plane says "left beats diag", the
+    high plane (``bit + STRIP``) "up beats both"."""
+    j, c = np.asarray(j, dtype=np.int64), np.asarray(c, dtype=np.int64)
+    ntc = tile_grid(R, C)[1]
+    tr, rl = np.divmod(j - 1, tile_rows())
+    tc, x = np.divmod(c - 1, TILE_COLS)
+    t, k = np.divmod(rl, STRIP)
+    word = ((tr * ntc + tc) * (TILE_COLS * LANES)
+            + ((x + t) % TILE_COLS) * LANES + t)
+    return word, STRIP - 1 - k
+
+
+def tile_order(rr, cc) -> np.ndarray:
+    """The ticket order of a batch's tiles: (T, 3) int32 rows (gap, tile
+    row, tile column), sorted by tile anti-diagonal, then gap, then tile
+    row.  The tile above and the tile to the left of a tile lie on the
+    anti-diagonal before its own, so both hold lower tickets; the gaps
+    are interleaved, so a large gap's long tail starts beside the small
+    gaps and not after them."""
+    parts = []
+    for g, (R, C) in enumerate(zip(rr, cc)):
+        ntr, ntc = tile_grid(int(R), int(C))
+        tr, tc = np.divmod(np.arange(ntr * ntc, dtype=np.int64), max(ntc, 1))
+        parts.append(np.stack([np.full_like(tr, g), tr, tc], axis=1))
+    tiles = (np.concatenate(parts) if parts
+             else np.zeros((0, 3), dtype=np.int64))
+    key = np.lexsort((tiles[:, 1], tiles[:, 0], tiles[:, 1] + tiles[:, 2]))
+    return np.ascontiguousarray(tiles[key].astype(np.int32))
+
+
+def _exclusive(sizes) -> np.ndarray:
+    """Offsets of consecutive segments of the given sizes."""
+    off = np.zeros(len(sizes), dtype=np.int64)
+    off[1:] = np.cumsum(sizes, dtype=np.int64)[:-1]
+    return off
+
+
+def batch_layout(rr, cc):
+    """The kernel's per-gap table, (G, 10) int64: R, C, rowgap and edge
+    rowgap (columns 2 and 3, filled by the caller), and the offsets of the
+    gap's codes, columns, top row, direction bytes, boundary store (int32
+    elements: tile rows x (C + 1), then tile columns x (R + 1)) and
+    flags (one a tile) in the batch's concatenated arrays.  Returns
+    (table, direction bytes, boundary elements, tiles) of the batch."""
+    rr = np.asarray(rr, dtype=np.int64)
+    cc = np.asarray(cc, dtype=np.int64)
+    ntr = -(-rr // tile_rows())
+    ntc = -(-cc // TILE_COLS)
+    sizes = {4: rr, 5: cc, 6: cc + 1, 7: ntr * ntc * tile_bytes(),
+             8: ntr * (cc + 1) + ntc * (rr + 1), 9: ntr * ntc}
+    meta = np.zeros((len(rr), 10), dtype=np.int64)
+    meta[:, 0], meta[:, 1] = rr, cc
+    for col, size in sizes.items():
+        meta[:, col] = _exclusive(size)
+    return meta, int(sizes[7].sum()), int(sizes[8].sum()), int(sizes[9].sum())
 
 
 def profile_paths(items: Sequence[tuple], device, *, match: int = 1,
@@ -108,43 +198,85 @@ def _launch_paths(items: Sequence[tuple], device, *, match, mismatch,
                   indel, doublegap):
     """Upload a batch and launch the kernel on ``device``'s current
     stream; returns the device (paths, nsteps) without waiting."""
-    codes, sv, top, iv, erg, rr, cc = _pad_items(items)
-    G, Rmax = codes.shape
-    Cmax = sv.shape[1]
-    put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
-    codes_t, sv_t, top_t = put(codes), put(sv), put(top)
-    iv_t, erg_t, rr_t, cc_t = put(iv), put(erg), put(rr), put(cc)
-    colsub, cg, rowgap = _channels(sv_t, iv_t, match=match,
-                                   mismatch=mismatch, indel=indel,
-                                   doublegap=doublegap)
-    colsub = colsub.to(torch.int32).contiguous()
-    cg = cg.to(torch.int32).contiguous()
-    rowgap = rowgap.to(torch.int32).contiguous()
+    return _launch(_upload(items, device, match=match, mismatch=mismatch,
+                           indel=indel, doublegap=doublegap))
 
-    sizes = [dirs_bytes(int(r), int(c)) for r, c in zip(rr, cc)]
-    offs = np.zeros(G, dtype=np.int64)
-    offs[1:] = np.cumsum(sizes)[:-1]
-    dirs = torch.empty(int(sum(sizes)), dtype=torch.uint8, device=device)
-    offs_t = put(offs)
-    smem = 3 * (Cmax + 1) * 4
-    use_smem = smem <= kernels.smem_optin()
-    scratch = (torch.empty(0, dtype=torch.int32, device=device) if use_smem
-               else torch.empty((G, 3, Cmax + 1), dtype=torch.int32,
-                                device=device))
-    threads = min(THREADS_MAX, max(32, -(-((Cmax + 4) // 4) // 32) * 32))
-    paths = torch.empty((G, Rmax + Cmax), dtype=torch.int8, device=device)
-    nsteps = torch.empty(G, dtype=torch.int32, device=device)
-    kernels.COUNTS["profile_dp"] += 1
-    kernels.call(
-        "csa_profile_paths", codes_t.data_ptr(), Rmax, colsub.data_ptr(),
-        cg.data_ptr(), top_t.data_ptr(), Cmax, rowgap.data_ptr(),
-        erg_t.data_ptr(), rr_t.data_ptr(), cc_t.data_ptr(),
-        offs_t.data_ptr(), dirs.data_ptr(),
-        scratch.data_ptr() if not use_smem else None, int(use_smem),
-        threads, G, paths.data_ptr(), nsteps.data_ptr(),
-        kernels.stream_ptr(device),
+
+def _upload(items: Sequence[tuple], device, *, match: int = 1,
+            mismatch: int = -1, indel: int = -1, doublegap: int = 0) -> dict:
+    """A batch on ``device`` as the kernel takes it: every gap's exact
+    rows and columns, concatenated, with the per-gap table, the ticket
+    order and the launch's scratch (allocated on the current stream)."""
+    device = torch.device(device)
+    rr = np.array([len(it[0]) for it in items], dtype=np.int64)
+    cc = np.array([len(it[1]) for it in items], dtype=np.int64)
+    iv = np.array([it[2] for it in items], dtype=np.int64)
+    meta, dirs_total, bnd_total, T = batch_layout(rr, cc)
+    meta[:, 2] = indel * iv
+    meta[:, 3] = [it[4] for it in items]
+    order = tile_order(rr, cc)
+    codes = np.concatenate(
+        [np.asarray(it[0]).astype(np.int8) for it in items])
+    sv = np.concatenate(
+        [np.asarray(it[1]).reshape(-1, 5).astype(np.int32) for it in items])
+    top = np.concatenate(
+        [np.asarray(it[3])[: C + 1].astype(np.int32)
+         for it, C in zip(items, cc)])
+    put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    # the concatenated columns as one-column gaps, each with its gap's i
+    colsub, cg, _ = _channels(put(sv)[:, None, :],
+                              put(np.repeat(iv, cc).astype(np.int32)),
+                              match=match, mismatch=mismatch, indel=indel,
+                              doublegap=doublegap)
+    G = len(items)
+    L = int((rr + cc).max())
+    empty = lambda n, dt: torch.empty(int(n), dtype=dt, device=device)  # noqa: E731
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return dict(
+        device=device, G=G, T=T, L=L,
+        workers=max(1, min(T, sms * WORKERS_PER_SM)),
+        strip=STRIP, tile_cols=TILE_COLS,
+        codes=put(codes),
+        colsub=colsub.to(torch.int32).reshape(-1, 5).contiguous(),
+        cg=cg.to(torch.int32).reshape(-1).contiguous(), top=put(top),
+        meta=put(meta), order=put(order),
+        ctrl=empty(1 + T, torch.int32),
+        bnd=empty(bnd_total, torch.int32),
+        dirs=empty(dirs_total, torch.uint8),
+        paths=torch.empty((G, L), dtype=torch.int8, device=device),
+        nsteps=empty(G, torch.int32),
     )
-    return paths, nsteps
+
+
+def _launch(b: dict):
+    """The fill launch and the walk launch of an uploaded batch on the
+    current stream of its device; returns (paths, nsteps)."""
+    _launch_fill(b)
+    return _launch_walk(b)
+
+
+def _launch_fill(b: dict) -> None:
+    with torch.cuda.device(b["device"]):
+        b["ctrl"].zero_()  # the ticket counter and every tile's flag
+        kernels.COUNTS["profile_dp"] += 1
+        kernels.call(
+            "csa_profile_fill", b["codes"].data_ptr(), b["colsub"].data_ptr(),
+            b["cg"].data_ptr(), b["top"].data_ptr(), b["meta"].data_ptr(),
+            b["order"].data_ptr(), b["T"], b["ctrl"].data_ptr(),
+            b["bnd"].data_ptr(), b["dirs"].data_ptr(), b["strip"],
+            b["tile_cols"], b["workers"], kernels.stream_ptr(b["device"]),
+        )
+
+
+def _launch_walk(b: dict):
+    with torch.cuda.device(b["device"]):
+        kernels.call(
+            "csa_profile_walk", b["dirs"].data_ptr(), b["meta"].data_ptr(),
+            b["strip"], b["tile_cols"], b["G"], b["L"],
+            b["paths"].data_ptr(), b["nsteps"].data_ptr(),
+            kernels.stream_ptr(b["device"]),
+        )
+    return b["paths"], b["nsteps"]
 
 
 def _collect(paths: torch.Tensor, nsteps: torch.Tensor) -> List[np.ndarray]:

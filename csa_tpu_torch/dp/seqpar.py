@@ -87,7 +87,7 @@ def fill_blocks(row_codes, scorevector, i: int, mesh: Mesh, *,
         (np.arange(1, Rp + 1, dtype=np.int64) * int(edge_rowgap))
         .astype(np.int32).reshape(nb, Rb))
     dev0 = mesh.devices[0]
-    blocks = torch.empty((D * nb, profile.dirs_bytes(Rb, Cloc)),
+    blocks = torch.empty((D * nb, band.dirs_bytes(Rb, Cloc)),
                          dtype=torch.uint8, device=dev0)
     codes_on = {}
     ranks = []

@@ -66,11 +66,30 @@ def _items(rng, G, rmax, cmax, i_max=17, stale=True):
     return items
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["ragged_stale", "fresh", "i64",
-                                  "thin", "wide_global_scratch"])
-def test_profile_kernel_matches_plain(cuda, case):
-    rng = np.random.default_rng(len(case))
+def _shaped(rng, shapes, i=None, stale=True):
+    """Items of the given (R, C) shapes; ``i`` fixed or drawn from 1..16."""
+    items = []
+    for R, C in shapes:
+        n = i or int(rng.integers(1, 17))
+        sv = rng.integers(0, min(n, 64) + 1, size=(C, 5)).astype(np.int64)
+        if stale:
+            top = rng.integers(-60, 10, size=C + 1).astype(np.int64)
+            erg = int(rng.integers(-20, 0))
+        else:
+            top = profile.default_top_row(sv, n, indel=-1, doublegap=0)
+            erg = -n
+        items.append((rng.integers(0, 4, size=R).astype(np.int64), sv, n,
+                      top, erg))
+    return items
+
+
+PROFILE_CASES = ["ragged_stale", "fresh", "i64", "thin", "tile_edges",
+                 "below_one_tile", "giant_among_tiny", "stale_scoring_i64",
+                 "wide_30000"]
+
+
+def _profile_case(case, rng):
+    Tr, Tc = profile.tile_rows(), profile.TILE_COLS
     sc = {}
     if case == "ragged_stale":
         items = _items(rng, 12, 700, 900)
@@ -81,22 +100,61 @@ def test_profile_kernel_matches_plain(cuda, case):
         items = _items(rng, 3, 200, 200, i_max=65)
         items = [(c, s, 64, t, e) for c, s, _, t, e in items]
     elif case == "thin":
-        items = []
-        for R, C in [(1, 500), (500, 1), (1, 1)]:
-            sv = rng.integers(0, 4, size=(C, 5))
-            items.append((rng.integers(0, 4, size=R), sv, 3,
-                          profile.default_top_row(sv, 3, indel=-1,
-                                                  doublegap=0), -3))
-    else:  # 3 * (C + 1) * 4 bytes above the shared-memory opt-in
-        items = _items(rng, 2, 300, 2, stale=True)
-        items.append(_items(rng, 1, 50, 2)[0])
-        C = 24_000
-        items[0] = (items[0][0], rng.integers(0, 4, size=(C, 5)), 4,
-                    rng.integers(-60, 10, size=C + 1), -7)
+        items = _shaped(rng, [(1, 500), (500, 1), (1, 1)], i=3, stale=False)
+    elif case == "tile_edges":  # tile multiples and one cell either side
+        items = _shaped(rng, [(Tr, Tc), (Tr + 1, Tc + 1), (Tr - 1, Tc - 1),
+                              (2 * Tr, 3 * Tc), (2 * Tr + 1, 3 * Tc - 1),
+                              (2 * Tr - 1, 3 * Tc + 1)])
+    elif case == "below_one_tile":
+        items = _shaped(rng, [(Tr // 7, Tc // 3)])
+    elif case == "giant_among_tiny":  # the queue interleaves the gaps
+        items = (_items(rng, 20, 20, 20) + _shaped(rng, [(3000, 4500)])
+                 + _items(rng, 20, 20, 20))
+    elif case == "stale_scoring_i64":
+        items = _shaped(rng, [(700, 1300), (1300, 700)], i=64)
+        sc = dict(match=2, mismatch=-3, indel=-2, doublegap=-1)
+    else:  # far wider than one block's shared memory could hold in rows
+        items = _shaped(rng, [(300, 30_000), (50, 2)])
+    return items, sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PROFILE_CASES)
+def test_profile_kernel_matches_plain(cuda, case):
+    items, sc = _profile_case(case, np.random.default_rng(len(case)))
     before = kernels.COUNTS["profile_dp"]
     got = profile.profile_paths(items, cuda, **sc)
     assert kernels.COUNTS["profile_dp"] == before + 1
     want = profile.profile_paths_plain(items, cuda, **sc)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strip,tile_cols", [(16, 256), (8, 512), (16, 64)])
+def test_profile_kernel_other_tiles(cuda, monkeypatch, strip, tile_cols):
+    """The kernel's other strip width and other tile widths."""
+    monkeypatch.setattr(profile, "STRIP", strip)
+    monkeypatch.setattr(profile, "TILE_COLS", tile_cols)
+    items, sc = _profile_case("tile_edges", np.random.default_rng(strip))
+    items += _profile_case("ragged_stale", np.random.default_rng(1))[0]
+    got = profile.profile_paths(items, cuda, **sc)
+    want = profile.profile_paths_plain(items, cuda, **sc)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_profile_two_launches_on_two_streams(cuda):
+    """profile_paths_sharded on two ranks of one card: two launches at
+    once, each with its own counter and flags, each exact."""
+    rng = np.random.default_rng(2)
+    items = _shaped(rng, [(2048, 2048)] * 6) + _items(rng, 6, 900, 900)
+    mesh = make_mesh(2, devices=[cuda])
+    before = kernels.COUNTS["profile_dp"]
+    got = profile.profile_paths_sharded(items, mesh)
+    assert kernels.COUNTS["profile_dp"] == before + 2
+    want = profile.profile_paths_plain(items, cuda)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
 

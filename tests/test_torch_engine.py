@@ -15,7 +15,11 @@ from csa_tpu.io import fasta as fio
 from csa_tpu_torch import kernels
 from csa_tpu_torch.index import engine
 
+import torch_jax_native
+
 torch.set_num_threads(1)
+# the JAX package's native library, loaded under an inter-process lock
+torch_jax_native.ensure()
 
 FIX = pathlib.Path(__file__).parent / "fixtures"
 SETS = ["tiny/t1", "tiny/t8", "tiny/a-repeat-0", "Primates"]

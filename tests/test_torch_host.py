@@ -28,7 +28,11 @@ from csa_tpu_torch.report import blocks_report, circular_plot
 from csa_tpu_torch.rotation import pipeline as rot
 from csa_tpu_torch.tools import files as tools
 
+import torch_jax_native
+
 torch.set_num_threads(1)
+# the JAX package's native library, loaded under an inter-process lock
+torch_jax_native.ensure()
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FIX = REPO / "tests" / "fixtures"

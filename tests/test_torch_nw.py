@@ -16,7 +16,11 @@ from csa_tpu_torch import cli, kernels
 from csa_tpu_torch.dp import nw
 from csa_tpu_torch.rotation import verification
 
+import torch_jax_native
+
 torch.set_num_threads(1)
+# the JAX package's native library, loaded under an inter-process lock
+torch_jax_native.ensure()
 
 SHAPES = [(3, 40, 55), (2, 100, 100), (2, 131, 62), (1, 1, 7), (2, 7, 1)]
 

@@ -25,7 +25,11 @@ from csa_tpu_torch.dp import band, profile, seqpar
 from csa_tpu_torch.parallel import sharded
 from csa_tpu_torch.parallel.sharded import make_mesh, relabel
 
+import torch_jax_native
+
 torch.set_num_threads(1)
+# the JAX package's native library, loaded under an inter-process lock
+torch_jax_native.ensure()
 
 FIX = pathlib.Path(__file__).resolve().parent / "fixtures"
 NON_DEFAULT = config.Scoring(match=2, mismatch=-3, indel=-2, doublegap=-1)
@@ -153,7 +157,7 @@ def test_band_fill_cpu_writes_into_out_and_rejects_other_devices():
     args = _band_inputs(codes, sv, i, slice(0, 9), slice(0, 13), top,
                         -i * np.arange(1, 10), _sc(config.DEFAULT_SCORING))
     want = band.band_fill_plain(*args)
-    out = (torch.empty(profile.dirs_bytes(9, 13), dtype=torch.uint8),
+    out = (torch.empty(band.dirs_bytes(9, 13), dtype=torch.uint8),
            torch.empty(14, dtype=torch.int32),
            torch.empty(9, dtype=torch.int32))
     got = band.band_fill(*args, out=out)

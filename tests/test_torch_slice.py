@@ -25,7 +25,11 @@ from csa_tpu_torch.align import runner
 from csa_tpu_torch.config import from_jax_config, scoring_kwargs
 from csa_tpu_torch.rotation import pipeline as rot
 
+import torch_jax_native
+
 torch.set_num_threads(1)
+# the JAX package's native library, loaded under an inter-process lock
+torch_jax_native.ensure()
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FIX = REPO / "tests" / "fixtures"
