@@ -37,21 +37,28 @@ Phases, one JSON line each on stdout:
                 launch count (zeroed just before, read just after);
   8. mbp:       rotation mode on 8 x 1 Mbp (seed 7): the port's CLI
                 against the native host engine's CLI on the same machine;
-  9. band:      the band kernel (one band of the column-sharded DP)
-                against its plain version, exact: rank-0 edge and halo
-                bands, stale tops, Rb = 1 / Cloc = 1, Rb not a multiple of
-                4, non-default scoring, i = 64, Set3's band shapes at 8
-                and 2 ranks (shared memory) and Cloc = 30,000 (global
-                scratch); the band walk against its host walk;
+  9. band:      the band kernel (one band of the column-sharded DP, on
+                the profile DP's tile engine) against its plain version,
+                exact in both direction bits of every cell, the bottom
+                row and the right edge: rank-0 edge and halo bands, stale
+                tops, Rb = 1 / Cloc = 1, Rb not a multiple of 4,
+                non-default scoring, i = 64, Set3's band shapes at 8 and
+                2 ranks and Cloc = 30,000; each timed beside its bound,
+                the design's floor (its tile anti-diagonals at the
+                profile phase's step time) and the batch fill of the
+                same tile graph;
  10. seqpar:    dp_path_seqpar on the largest giants of Set3 (16,979 x
                 20,852) and Primates (5,307 x 5,945), stale top rows, at
                 2, 4 and 8 ranks on the one card, against the profile
                 kernel's path and the native host library's, and the walk
-                kernel against its host walk;
+                kernel against its host walk; the fill host-timed and its
+                supersteps' device span (CUDA events around every band);
  11. sharded:   the port's CLI with --backend sharded --mesh 8x1 on
                 Primates and Set3: output against the fixtures, the
-                seqpar dispatches, and the band and profile kernels'
-                launch counts (zeroed just before, read just after).
+                seqpar dispatches, the walls of the giants and of the
+                rank-split batches inside align.dp_fill, and the band and
+                profile kernels' launch counts (zeroed just before, read
+                just after).
 Then the card's name and power limit, a JSON line with one entry per
 kernel (its time, the plain version's, the bound, the library call's),
 and the last line {"ok": true, "device": {...}}.  Any failed phase
@@ -398,6 +405,7 @@ def phase_profile(profile, kernels, stats):
                 step_us = rec["fill_ms"] * 1e3 / (
                     rec["tiles"] * (Tc + 31))
                 rec["step_us"] = step_us
+                stats["profile_dp"]["step_us"] = step_us
             else:
                 rec["variants"] = _profile_variants(np, profile, items, sc)
             # the serial floor of this design: the tile anti-diagonals
@@ -667,6 +675,8 @@ def phase_band(band, stats):
     dflt = dict(match=1, mismatch=-1, indel=-1, doublegap=0)
     nd = dict(match=2, mismatch=-3, indel=-2, doublegap=-1)
     R, C = SET3_GIANT
+    Tc = profile.TILE_COLS
+    step_us = stats["profile_dp"]["step_us"]
     # (name, Rb, Cloc, i, rank 0, scoring)
     cases = [
         ("rank0_edge", 300, 500, 7, True, dflt),
@@ -676,39 +686,88 @@ def phase_band(band, stats):
         ("non_default_scoring", 700, 900, 6, False, nd),
         ("i64", 256, 640, 64, False, dflt),
         ("set3_8_ranks", 2048, -(-C // 8), 9, False, dflt),
-        ("set3_2_ranks_smem", 2048, -(-C // 2), 9, True, dflt),
-        ("cloc_30000_scratch", 2048, 30_000, 9, False, dflt),
+        ("set3_2_ranks", 2048, -(-C // 2), 9, True, dflt),
+        ("cloc_30000", 2048, 30_000, 9, False, dflt),
     ]
     worst = 0
     for name, Rb, Cloc, i, rank0, sc in cases:
         args = _band_args(torch, np, profile, rng, Rb, Cloc, i, rank0, sc)
-        scratch = band.scratch_for(Cloc, "cuda")
+        scratch = band.scratch_for(Rb, Cloc, args[3], "cuda")
         kern = lambda: band.band_fill(*args, scratch=scratch)  # noqa: E731
         got = kern()
         want, pms = wall_ms(lambda: band.band_fill_plain(*args))
         torch.cuda.synchronize()
-        for g, w, what in zip(got, want, ("directions", "bottom", "edge")):
+        # both direction bits of every cell (a ragged tile's other bytes
+        # are undefined), the bottom row and the edge
+        pairs = [(band.cell_bits(got[0], Rb, Cloc),
+                  band.cell_bits(want[0], Rb, Cloc), "directions"),
+                 (got[1], want[1], "bottom"), (got[2], want[2], "edge")]
+        for g, w, what in pairs:
             check(torch.equal(g, w), f"band {what} differ in case {name}")
-        check(torch.equal(band.unpack_dirs(got[0], Rb, Cloc),
-                          band.unpack_dirs(want[0], Rb, Cloc)),
-              f"band direction codes differ in case {name}")
-        worst = max(worst, max(int((g.long() - w.long()).abs().max())
-                               for g, w in zip(got, want)))
-        ms = cuda_ms(kern, 3)
+            worst = max(worst, int((g.long() - w.long()).abs().max()))
+        ms = cuda_ms(kern, 5)
+        # the batch fill (the engine without the band's code) on the same
+        # one-gap tile graph: what the band's own code costs
+        same = profile._upload(_profile_items(
+            np, np.random.default_rng(Rb + Cloc), [(Rb, Cloc)],
+            lambda r: i, True, sc), "cuda", **sc)
+        same_ms = cuda_ms(lambda: profile._launch_fill(same), 5)
         cells = Rb * Cloc
-        # in: codes, colsub, cg, top, left; out: directions, bottom, edge
+        # in: codes, colsub, cg, top, left; out: 2 bits a cell, bottom,
+        # edge
         nbytes = (Rb + 24 * Cloc + 4 * (Cloc + 1) + 4 * Rb
-                  + band.dirs_bytes(Rb, Cloc) + 4 * (Cloc + 1) + 4 * Rb)
+                  + cells / 4 + 4 * (Cloc + 1) + 4 * Rb)
         bms, by = bound(nbytes, PROFILE_OPS_PER_CELL * cells)
+        ntr, ntc = profile.tile_grid(Rb, Cloc)
+        # the design's floor: its tile anti-diagonals one after the other,
+        # Tc + 31 steps each at the profile phase's step time
+        floor_ms = (ntr + ntc - 1) * (Tc + 31) * step_us / 1e3
         emit({"phase": "band", "case": name, "Rb": Rb, "Cloc": Cloc,
-              "i": i, "scoring": sc, "shared_memory": scratch is None,
+              "i": i, "scoring": sc, "tiles": scratch.T,
+              "tile_diagonals": ntr + ntc - 1, "workers": scratch.workers,
               "equal": True, "ms": ms, "plain_ms": pms,
               "gcell_per_s": cells / ms / 1e6, "bound_ms": bms,
-              "bound_by": by})
+              "bound_by": by, "design_floor_ms": floor_ms,
+              "profile_fill_same_tiles_ms": same_ms})
         if name == "set3_8_ranks":
             stats["band"].update(ms=ms, plain_ms=pms, library_ms=None,
-                                 bound_ms=bms, bound_by=by)
+                                 bound_ms=bms, bound_by=by,
+                                 design_floor_ms=floor_ms,
+                                 profile_fill_same_tiles_ms=same_ms)
     stats["band"]["max_abs_err"] = worst
+
+
+def _band_spans(band, fill):
+    """Run ``fill`` with every band launch between two CUDA events on its
+    rank's stream; returns (device span from the first band's start to
+    the last band's end, median band ms, ms from one band call's start to
+    the next), in milliseconds."""
+    import numpy as np
+    import torch
+
+    real = band.band_fill
+    log = []
+
+    def timed(*args, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real(*args, **kw)
+        e1.record()
+        log.append((e0, e1, time.perf_counter()))
+        return out
+
+    band.band_fill = timed
+    try:
+        fill()
+    finally:
+        band.band_fill = real
+    torch.cuda.synchronize()
+    first = log[0][0]
+    span = max(first.elapsed_time(e1) for _, e1, _ in log)
+    med = float(np.median([e0.elapsed_time(e1) for e0, e1, _ in log]))
+    calls = [b[2] - a[2] for a, b in zip(log, log[1:])]
+    return span, med, float(np.median(calls)) * 1e3 if calls else 0.0
 
 
 def phase_seqpar(seqpar, profile, band, kernels, native):
@@ -750,18 +809,24 @@ def phase_seqpar(seqpar, profile, band, kernels, native):
                   "profile kernel's")
             # the fill alone, then the walk kernel against its host walk
             # on the same blocks
-            (blocks, nb, Rb, Cloc), fill_ms = wall_ms(
-                lambda: seqpar.fill_blocks(
-                    codes, sv, i, mesh, band_rows=seqpar.BAND_ROWS,
-                    top_row=top, edge_rowgap=erg, match=1, mismatch=-1,
-                    indel=-1, doublegap=0))
+            fill = lambda: seqpar.fill_blocks(  # noqa: E731
+                codes, sv, i, mesh, band_rows=seqpar.BAND_ROWS, top_row=top,
+                edge_rowgap=erg, match=1, mismatch=-1, indel=-1,
+                doublegap=0)
+            (blocks, nb, Rb, Cloc), fill_ms = wall_ms(fill)
             walked, walk_ms = wall_ms(lambda: band.band_walk(
                 blocks, R, C, nb=nb, Rb=Rb, Cloc=Cloc))
             check(np.array_equal(band.band_walk_plain(
                 blocks, R, C, nb=nb, Rb=Rb, Cloc=Cloc), walked),
                 f"seqpar {name} at {n} ranks: the walk kernel differs from "
                 "the host walk")
+            # the device's share of the fill: the supersteps' span, a
+            # band's time on the card, the host's time between launches
+            span, band_med, call_ms = _band_spans(band, fill)
             runs[n] = {"ms": ms, "fill_ms": fill_ms, "walk_ms": walk_ms,
+                       "fill_device_span_ms": span,
+                       "band_device_ms_median": band_med,
+                       "host_ms_between_band_calls": call_ms,
                        "band_launches": launches, "bands": nb,
                        "band_rows": Rb, "cols_per_rank": Cloc,
                        "gcell_per_s": R * C / ms / 1e6}
@@ -772,15 +837,27 @@ def phase_seqpar(seqpar, profile, band, kernels, native):
               "ranks": runs})
 
 
-def phase_sharded(cli, kernels, tools_files, seqpar, single_walls):
+def phase_sharded(cli, kernels, tools_files, seqpar, profile, single_walls):
     from csa_tpu_torch.utils import PROFILER
 
+    # wall seconds of each giant (seqpar) and of each rank-split batch of
+    # the rest of a round; both return host arrays, so they have synced
     calls = []
+    batches = []
     real = seqpar.dp_path_seqpar
+    real_batch = profile.profile_paths_sharded
 
     def spy(*args, **kw):
-        calls.append(1)
-        return real(*args, **kw)
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        calls.append(time.perf_counter() - t0)
+        return out
+
+    def batch_spy(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_batch(*args, **kw)
+        batches.append(time.perf_counter() - t0)
+        return out
 
     out = {}
     launches = {}
@@ -795,12 +872,15 @@ def phase_sharded(cli, kernels, tools_files, seqpar, single_walls):
                 copy_fixture(tmp, name)
                 PROFILER.reset()
                 calls.clear()
+                batches.clear()
                 seqpar.dp_path_seqpar = spy
+                profile.profile_paths_sharded = batch_spy
                 kernels.reset_counts()
                 try:
                     _, wall = run_port_cli(cli, tmp, argv)
                 finally:
                     seqpar.dp_path_seqpar = real
+                    profile.profile_paths_sharded = real_batch
                 counts = dict(kernels.COUNTS)
                 rot = tmp / f"{name}-Rotated.fasta"
                 aln = tmp / f"{name}-Aligned.fasta"
@@ -818,7 +898,10 @@ def phase_sharded(cli, kernels, tools_files, seqpar, single_walls):
                 "align.dp_fill_s": PROFILER.phases.get("align.dp_fill"),
                 "dp_device_dispatches":
                     PROFILER.counters.get("dp_device_dispatches"),
-                "seqpar_dispatches": len(calls), "launches": counts,
+                "seqpar_dispatches": len(calls),
+                "seqpar_s": sum(calls), "seqpar_max_s": max(calls, default=0),
+                "rank_split_batches": len(batches),
+                "rank_split_batch_s": sum(batches), "launches": counts,
                 "phases_s": {k: round(v, 4)
                              for k, v in PROFILER.phases.items()}}
             if backend == "sharded":
@@ -862,7 +945,7 @@ def main() -> int:
     phase_band(band, stats)
     phase_seqpar(seqpar, profile, band, kernels, native)
     launches["band"] = phase_sharded(cli, kernels, tools_files, seqpar,
-                                      walls)["band"]
+                                      profile, walls)["band"]
     check("jax" not in sys.modules, "jax was imported")
     check("csa_tpu" not in sys.modules, "the JAX package was imported")
 

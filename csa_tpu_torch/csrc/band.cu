@@ -8,190 +8,143 @@
 // A giant gap's DP (R rows x C columns) is split by columns over D ranks:
 // rank d owns global columns d*Cloc+1 .. (d+1)*Cloc.  Rows go in bands of
 // Rb; in superstep s rank d fills band s-d (dp/seqpar.py drives it).  One
-// launch fills one band of one rank: Rb x Cloc cells of the recurrence of
-// profile_dp.cu,
-//   diag = dp[j-1][c-1] + colsub[c-1][code[j-1]]
-//   up   = dp[j-1][c]   + rowgap
-//   left = dp[j][c-1]   + cg[c-1]
-// ties diag >= left >= up, in band-local coordinates (j = 0..Rb,
-// c = 0..Cloc).  Boundaries are given explicitly: dp[0][c] = top[c] (band
-// 0: the rank's slice of the global top row, possibly stale; later bands:
-// the rank's own previous bottom row), dp[j][0] = left[j-1] (rank 0:
-// j * edge_rowgap at the global row; other ranks: the left neighbour's
-// right-edge column), row 0 winning at (0, 0).  Outputs: the directions,
-// the bottom row dp[Rb][0..Cloc] (index 0 is the left boundary, so the
-// carried row keeps the left-halo element as seqpar does) and the right
-// edge dp[1..Rb][Cloc] (the halo for rank d+1).
+// launch fills one band of one rank: Rb x Cloc cells of the profile-DP
+// recurrence, ties diag >= left >= up, in band-local coordinates
+// (j = 0..Rb, c = 0..Cloc).  Boundaries are given explicitly: dp[0][c] =
+// top[c] (band 0: the rank's slice of the global top row, possibly stale;
+// later bands: the rank's own previous bottom row), dp[j][0] = left[j-1]
+// (rank 0: j * edge_rowgap at the global row; other ranks: the left
+// neighbour's right-edge column), row 0 winning at (0, 0).  Outputs: the
+// directions, the bottom row dp[Rb][0..Cloc] (index 0 is the left
+// boundary, so the carried row keeps the left-halo element as seqpar
+// does) and the right edge dp[1..Rb][Cloc] (the halo for rank d+1).
 //
-// Bound on this card: int32 operations, ~10 a cell (three moves, three
-// compares, four selects, as PERF.md counts them), and inside a band the
-// serial dependence between anti-diagonals: diagonal t starts only when
-// t-1 is done.  Design: one block fills one band by anti-diagonals, its
-// threads striding over the groups of 4 columns that hold the diagonal's
-// cells (at most min(Rb, Cloc) + 1 of them), one __syncthreads() per
-// diagonal, with three rotating diagonals of Cloc+1 int32 indexed by
-// column, in shared memory when they fit the opt-in limit and in global
-// scratch (L2-resident) when they do not.  The parallelism across the
-// serial dependence comes from the mesh: each rank launches on its own
-// stream, so the D bands of one superstep run at the same time on
-// separate SMs, and a giant gap's serial diagonals per rank shrink from
-// R + C to about (nb + D - 1) * (Rb + Cloc).
+// Bound on this card, and design: those of the profile DP, whose tile
+// engine (csrc/tile_dp.cuh) fills the band as a gap of its own with an
+// explicit left column and both outputs (the JAX band kernel is likewise
+// the profile kernel with these three generalizations).  A band is cut
+// into tiles of 32 * S rows by Tc columns, one warp fills a tile from
+// registers, and workers take tiles from a ticket queue and hand the
+// boundaries on through ready flags: one launch a (rank, band), its
+// critical path the band's tile anti-diagonals.  The entry zeroes the
+// ticket counter and flags (T + 1 ints) on the stream before the launch,
+// so the bands of a rank reuse one scratch on the rank's stream; nothing
+// else is zeroed: the directions a ragged tile does not hold are never
+// read.
 //
-// Directions: D_DIAG=0, D_LEFT=1, D_UP=2, 2 bits a cell, packed by
-// diagonal: byte (t, q) holds cells (t-c, c) for
-// c = 4q..4q+3, so a band's block is (Rb+Cloc+1) x Q bytes with
-// Q = ceil((Cloc+1)/4); boundary cells hold 0.
+// Directions: each (rank, band) block holds its band in the profile DP's
+// tiled layout for an Rb x Cloc gap (dp/profile.py:dirs_address).
 //
-// Walk: one thread walks from (R, C) to (0, 0) over the per-(rank, band)
-// blocks, gathered on one device: cell (j, c) lives at rank (c-1)/Cloc,
-// band (j-1)/Rb, local (jl, cl), byte (jl+cl)*Q + cl/4; on the edges it
-// goes UP while j > 0, then LEFT.  Only the walk-order codes and the step
-// count leave the kernel.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Walk: one warp walks from (R, C) to (0, 0) over the per-(rank, band)
+// blocks, gathered on one device, as the profile DP's walk walks a gap: it
+// copies the tile it stands in to shared memory, walks inside it, and
+// loads the next tile, which may lie in another band or rank block, when
+// it crosses an edge; cell (j, c) lives at rank (c-1)/Cloc, band (j-1)/Rb.
+// On the matrix edges it goes UP while j > 0, then LEFT.  Only the
+// walk-order codes and the step count leave the kernel.
+#include "tile_dp.cuh"
 
 namespace {
 
-constexpr int kDiag = 0;
-constexpr int kLeft = 1;
-constexpr int kUp = 2;
-
-__global__ void band_fill_kernel(
-    const int8_t* __restrict__ codes, int Rb,
-    const int32_t* __restrict__ colsub, const int32_t* __restrict__ cg,
-    int Cloc, int32_t rowgap, const int32_t* __restrict__ top,
-    const int32_t* __restrict__ left, uint8_t* __restrict__ dirs,
-    int32_t* __restrict__ bottom, int32_t* __restrict__ edge,
-    int32_t* __restrict__ scratch, int use_smem) {
-  extern __shared__ int32_t smem[];
-  const int W = Cloc + 1;
-  int32_t* buf = use_smem ? smem : scratch;
-  const int Q = (Cloc + 4) / 4;  // ceil((Cloc + 1) / 4) column groups
-
-  for (int t = 0; t <= Rb + Cloc; ++t) {
-    int32_t* cur = buf + (t % 3) * W;
-    const int32_t* p1 = buf + ((t + 2) % 3) * W;  // diagonal t-1
-    const int32_t* p2 = buf + ((t + 1) % 3) * W;  // diagonal t-2
-    uint8_t* drow = dirs + (long long)t * Q;
-    // only the groups holding cells of this diagonal (t-Rb <= c <= t);
-    // the other bytes of the row stay as the entry zeroed them
-    const int q_lo = max(0, t - Rb) >> 2;
-    const int q_hi = min(Cloc, t) >> 2;
-    for (int q = q_lo + threadIdx.x; q <= q_hi; q += blockDim.x) {
-      unsigned byte = 0;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int c = 4 * q + u;
-        const int j = t - c;
-        if (c > Cloc || j < 0 || j > Rb) continue;
-        int32_t val;
-        if (j == 0) {
-          val = top[c];
-        } else if (c == 0) {
-          val = left[j - 1];
-        } else {
-          int b = codes[j - 1];
-          b = (b < 0 || b > 4) ? 4 : b;
-          const int32_t diag = p2[c - 1] + colsub[(c - 1) * 5 + b];
-          const int32_t up = p1[c] + rowgap;
-          const int32_t lft = p1[c - 1] + cg[c - 1];
-          int dcode;
-          if (diag >= up && diag >= lft) {
-            val = diag;
-            dcode = kDiag;
-          } else if (lft >= up) {
-            val = lft;
-            dcode = kLeft;
-          } else {
-            val = up;
-            dcode = kUp;
-          }
-          byte |= static_cast<unsigned>(dcode) << (2 * u);
-        }
-        cur[c] = val;
-        if (j == Rb) bottom[c] = val;
-        if (c == Cloc && j > 0) edge[j - 1] = val;
-      }
-      drow[q] = static_cast<uint8_t>(byte);
-    }
-    __syncthreads();
+// The tile of global cell (j, c) among the (rank, band) blocks.
+template <int S>
+struct BandTiles {
+  const uint8_t* blocks;
+  long long block_bytes;
+  int nb, Rb, Cloc, nTc, tc_shift;
+  __device__ const uint4* operator()(int j, int c, int& j0, int& c0) const {
+    constexpr int Tr = S * kLanes;
+    const int d = (c - 1) / Cloc;
+    const int b = (j - 1) / Rb;
+    const int tr = ((j - 1) - b * Rb) / Tr;
+    const int tc = ((c - 1) - d * Cloc) >> tc_shift;
+    j0 = b * Rb + tr * Tr;
+    c0 = d * Cloc + (tc << tc_shift);
+    return reinterpret_cast<const uint4*>(
+        blocks + (d * nb + b) * block_bytes +
+        (tr * nTc + tc) * tile_bytes<S>(1 << tc_shift));
   }
+};
+
+template <int S>
+__global__ void __launch_bounds__(kLanes)
+band_walk_kernel(const uint8_t* __restrict__ blocks, long long block_bytes,
+                 int nb, int Rb, int Cloc, int R, int C, int Tc,
+                 int tc_shift, int8_t* __restrict__ path,
+                 int32_t* __restrict__ nsteps) {
+  extern __shared__ uint4 tile_smem[];
+  const BandTiles<S> loc{blocks, block_bytes, nb, Rb, Cloc,
+                         (Cloc + Tc - 1) >> tc_shift, tc_shift};
+  walk_path<S>(loc, R, C, Tc, tile_smem, path, nsteps);
 }
 
-__global__ void band_walk_kernel(const uint8_t* __restrict__ blocks,
-                                 long long block_bytes, int nb, int Rb,
-                                 int Cloc, int R, int C,
-                                 int8_t* __restrict__ path,
-                                 int32_t* __restrict__ nsteps) {
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
-  const int Q = (Cloc + 4) / 4;
-  int j = R;
-  int c = C;
-  int s = 0;
-  while (j > 0 || c > 0) {
-    int dcode;
-    if (j > 0 && c > 0) {
-      const int d = (c - 1) / Cloc;
-      const int b = (j - 1) / Rb;
-      const int cl = c - d * Cloc;
-      const int jl = j - b * Rb;
-      const uint8_t* blk = blocks + (long long)(d * nb + b) * block_bytes;
-      const unsigned byte = blk[(long long)(jl + cl) * Q + (cl >> 2)];
-      dcode = (byte >> (2 * (cl & 3))) & 3;
-    } else {
-      dcode = j > 0 ? kUp : kLeft;
-    }
-    path[s++] = static_cast<int8_t>(dcode);
-    if (dcode != kLeft) --j;
-    if (dcode != kUp) --c;
-  }
-  *nsteps = s;
+template <int S>
+int launch_walk(const void* blocks, long long block_bytes, int nb, int Rb,
+                int Cloc, int R, int C, int Tc, void* path, void* nsteps,
+                cudaStream_t st) {
+  static size_t smem_set[64] = {};
+  const size_t smem = (size_t)tile_bytes<S>(Tc);  // one tile
+  cudaError_t e = allow_smem(band_walk_kernel<S>, smem, smem_set);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  band_walk_kernel<S><<<1, kLanes, smem, st>>>(
+      static_cast<const uint8_t*>(blocks), block_bytes, nb, Rb, Cloc, R, C,
+      Tc, log2_of(Tc), static_cast<int8_t*>(path),
+      static_cast<int32_t*>(nsteps));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// One band: codes (Rb,) int8; colsub (Cloc, 5), cg (Cloc,) int32; top
-// (Cloc+1,), left (Rb,) int32.  Out: dirs (Rb+Cloc+1) x ceil((Cloc+1)/4)
-// bytes (zeroed here first), bottom (Cloc+1,), edge (Rb,) int32.  scratch:
-// (3, Cloc+1) int32, unused (may be null) when use_smem.  Returns the first
-// CUDA error (memset, attribute or launch), else 0.
-extern "C" int csa_band_fill(const void* codes, int Rb, const void* colsub,
-                             const void* cg, int Cloc, int rowgap,
-                             const void* top, const void* left, void* dirs,
-                             void* bottom, void* edge, void* scratch,
-                             int use_smem, int threads, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t nbytes =
-      (size_t)(Rb + Cloc + 1) * (size_t)((Cloc + 4) / 4);
-  cudaError_t z = cudaMemsetAsync(dirs, 0, nbytes, s);
-  if (z != cudaSuccess) return z;
-  size_t smem = 0;
-  if (use_smem) {
-    smem = (size_t)3 * (Cloc + 1) * sizeof(int32_t);
-    cudaError_t e = cudaFuncSetAttribute(
-        band_fill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
+// One band as one gap of the tile engine.  codes (Rb,) int8; colsub
+// (Cloc, 5), cg (Cloc,), top (Cloc + 1,), left (Rb,) int32.  meta (1, 10)
+// int64 and order (T, 3) int32 as csa_profile_fill takes them, for one
+// Rb x Cloc gap; ctrl (1 + T) int32, zeroed here; bnd: the gap's
+// boundary store.  Out: dirs (the gap's tiled direction
+// bytes), bottom (Cloc + 1,), edge (Rb,) int32.  Rb (the rows again)
+// picks the instantiation: a multiple of the tile height takes the one
+// without the ragged last tile row.  `workers` blocks of one warp.
+// Returns the memset's error or cudaGetLastError().
+extern "C" int csa_band_fill(const void* codes, const void* colsub,
+                             const void* cg, const void* top,
+                             const void* left, const void* meta,
+                             const void* order, int T, void* ctrl, void* bnd,
+                             void* dirs, void* bottom, void* edge, int Rb,
+                             int S, int Tc, int workers, void* stream) {
+  if (T <= 0) return cudaSuccess;
+  if (bad_tile(S, Tc) || workers < 1) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the ticket counter and the flags: T + 1 ints, not the directions
+  const cudaError_t z =
+      cudaMemsetAsync(ctrl, 0, (size_t)(T + 1) * sizeof(int), st);
+  if (z != cudaSuccess) return static_cast<int>(z);
+  const bool ragged = Rb % (S * kLanes) != 0;
+  if (S == 8) {
+    return ragged ? launch_tile_fill<8, true, true>(
+                        codes, colsub, cg, top, meta, order, T, ctrl, bnd,
+                        dirs, Tc, workers, left, bottom, edge, st)
+                  : launch_tile_fill<8, true>(
+                        codes, colsub, cg, top, meta, order, T, ctrl, bnd,
+                        dirs, Tc, workers, left, bottom, edge, st);
   }
-  band_fill_kernel<<<1, threads, smem, s>>>(
-      static_cast<const int8_t*>(codes), Rb,
-      static_cast<const int32_t*>(colsub), static_cast<const int32_t*>(cg),
-      Cloc, rowgap, static_cast<const int32_t*>(top),
-      static_cast<const int32_t*>(left), static_cast<uint8_t*>(dirs),
-      static_cast<int32_t*>(bottom), static_cast<int32_t*>(edge),
-      static_cast<int32_t*>(scratch), use_smem);
-  return cudaGetLastError();
+  return ragged ? launch_tile_fill<16, true, true>(
+                      codes, colsub, cg, top, meta, order, T, ctrl, bnd,
+                      dirs, Tc, workers, left, bottom, edge, st)
+                : launch_tile_fill<16, true>(
+                      codes, colsub, cg, top, meta, order, T, ctrl, bnd,
+                      dirs, Tc, workers, left, bottom, edge, st);
 }
 
-// Walk over D*nb band blocks of block_bytes each (block d*nb + b is rank
-// d's band b), from (R, C) to (0, 0).  path: (R + C,) int8 walk-order
-// codes; nsteps: (1,) int32.  Returns cudaGetLastError().
+// Walk over D * nb band blocks of block_bytes each (block d * nb + b is
+// rank d's band b, each in the tiled layout of S and Tc), from (R, C) to
+// (0, 0).  path: (R + C,) int8 walk-order codes; nsteps: (1,) int32.
+// Returns cudaGetLastError().
 extern "C" int csa_band_walk(const void* blocks, long long block_bytes,
-                             int nb, int Rb, int Cloc, int R, int C,
-                             void* path, void* nsteps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  band_walk_kernel<<<1, 1, 0, s>>>(
-      static_cast<const uint8_t*>(blocks), block_bytes, nb, Rb, Cloc, R, C,
-      static_cast<int8_t*>(path), static_cast<int32_t*>(nsteps));
-  return cudaGetLastError();
+                             int nb, int Rb, int Cloc, int R, int C, int S,
+                             int Tc, void* path, void* nsteps, void* stream) {
+  if (bad_tile(S, Tc)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return S == 8 ? launch_walk<8>(blocks, block_bytes, nb, Rb, Cloc, R, C, Tc,
+                                 path, nsteps, st)
+                : launch_walk<16>(blocks, block_bytes, nb, Rb, Cloc, R, C, Tc,
+                                  path, nsteps, st);
 }

@@ -5,12 +5,3 @@
 extern "C" const char* csa_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
-
-// Largest dynamic shared memory a block may opt into on the current device.
-extern "C" int csa_smem_optin(int* out) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  return cudaDeviceGetAttribute(out, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                dev);
-}

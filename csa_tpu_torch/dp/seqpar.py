@@ -14,9 +14,11 @@ right-edge column that rank d - 1 wrote for the same band (JAX's
 sender records an event after its band and the receiver's stream waits
 on it, then reads the sender's edge buffer in place on the same card or
 after a copy from another card.  Every buffer (one halo and one bottom
-row per rank and band) is allocated before the supersteps, on the
-caller's stream, and the caller's stream waits on every rank at the end,
-so the caching allocator never reuses a buffer a rank still reads.
+row per rank and band, and one band scratch per rank, which the rank's
+bands reuse one after another on its stream) is allocated before the
+supersteps, on the caller's stream, and the caller's stream waits on
+every rank at the end, so the caching allocator never reuses a buffer a
+rank still reads.
 
 The blocks of every (rank, band) end on rank 0's device (JAX's
 all-gather; on one card nothing moves), where one walk
@@ -114,7 +116,7 @@ def fill_blocks(row_codes, scorevector, i: int, mesh: Mesh, *,
             dirs=(torch.empty((nb, blocks.shape[1]), dtype=torch.uint8,
                               device=dev) if dev != dev0 else
                   blocks[d * nb:(d + 1) * nb]),
-            scratch=band.scratch_for(Cloc, dev),
+            scratch=band.scratch_for(Rb, Cloc, rowgap, dev),
         ))
     streams = rank_streams(mesh)
     done = {}

@@ -10,8 +10,9 @@ linked into ONE shared library with a plain C interface, loaded with
     nvcc -gencode arch=compute_90a,code=sm_90a -shared
          -o _build/libcsa_kernels_<hash>.so _build/*.<pid>.o
 
-The library name carries a hash of the sources and flags, so the first
-call after a source edit rebuilds it; a stale library is never loaded.
+The library name carries a hash of the sources, the headers they include
+(``csrc/*.cuh``) and the flags, so the first call after an edit of any of
+them rebuilds it; a stale library is never loaded.
 The build happens at first use, never at import, so the CPU-only test
 machines can import every module.  A missing ``nvcc`` or a failed build
 raises :class:`KernelBuildError`: there is no fallback.
@@ -57,10 +58,10 @@ _SIGNATURES = {
     "csa_profile_walk": [_VP, _VP, _I, _I, _I, _I, _VP, _VP, _VP],
     "csa_nw_scores": [_VP, _VP, _I, _I, _I, _I, _I, _VP, _VP, _VP],
     "csa_band_fill": [
-        _VP, _I, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I,
+        _I, _I, _I, _VP,
     ],
-    "csa_band_walk": [_VP, _LL, _I, _I, _I, _I, _I, _VP, _VP, _VP],
-    "csa_smem_optin": [ctypes.POINTER(ctypes.c_int)],
+    "csa_band_walk": [_VP, _LL, _I, _I, _I, _I, _I, _I, _I, _VP, _VP, _VP],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -83,6 +84,11 @@ def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list:
+    """The headers the sources include (``csrc/*.cuh``)."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _find_nvcc() -> Optional[str]:
     found = shutil.which("nvcc")
     if found:
@@ -93,9 +99,10 @@ def _find_nvcc() -> Optional[str]:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libcsa_kernels_{h.hexdigest()[:16]}.so"
@@ -167,13 +174,6 @@ def call(name: str, *args) -> None:
     if rc != 0:
         msg = lib.csa_error_string(rc).decode()
         raise KernelLaunchError(f"{name}: CUDA error {rc} ({msg})")
-
-
-def smem_optin() -> int:
-    """Largest dynamic shared memory one block may opt into, in bytes."""
-    out = ctypes.c_int(0)
-    call("csa_smem_optin", ctypes.byref(out))
-    return out.value
 
 
 def stream_ptr(device) -> int:

@@ -197,24 +197,56 @@ def _band_args(rng, Rb, Cloc, i, rank0, dev):
                                 torch.int32), put(left, torch.int32))
 
 
+def _band_equal(got, want, Rb, Cloc):
+    """Both direction bits of every cell, the bottom row and the edge
+    (the bytes of a ragged tile that hold no cell are undefined)."""
+    assert torch.equal(band.cell_bits(got[0], Rb, Cloc),
+                       band.cell_bits(want[0], Rb, Cloc))
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[2])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("Rb,Cloc,i,rank0", [
     (37, 301, 5, True),          # rank 0's edge band, Rb not a multiple of 4
     (256, 129, 64, False),       # a halo band, i = 64
-    (16, 30_000, 9, False),      # global scratch (3 x 30,001 int32)
+    (16, 30_000, 9, False),      # one tile row, 118 tile columns
+    (777, 1_001, 7, False),      # Rb and Cloc not multiples of 256
+    (2048, 30_000, 9, False),    # once global scratch (3 x 30,001 int32)
 ])
 def test_band_kernel_matches_plain(cuda, Rb, Cloc, i, rank0):
+    """Twice on one scratch: each launch zeroes its ticket counter and
+    flags first."""
     rng = np.random.default_rng(Rb + Cloc)
     args = _band_args(rng, Rb, Cloc, i, rank0, cuda)
-    scratch = band.scratch_for(Cloc, cuda)
-    assert (scratch is not None) == (Cloc == 30_000)
-    before = kernels.COUNTS["band"]
-    got = band.band_fill(*args, scratch=scratch)
-    assert kernels.COUNTS["band"] == before + 1
+    scratch = band.scratch_for(Rb, Cloc, args[3], cuda)
     want = band.band_fill_plain(*args)
+    for _ in range(2):
+        before = kernels.COUNTS["band"]
+        got = band.band_fill(*args, scratch=scratch)
+        assert kernels.COUNTS["band"] == before + 1
+        torch.cuda.synchronize()
+        _band_equal(got, want, Rb, Cloc)
+
+
+@pytest.mark.cuda
+def test_band_two_launches_on_two_streams(cuda):
+    """Two bands at once on two streams of the one card (the sharded
+    path's shape), each with its own scratch, each exact."""
+    rng = np.random.default_rng(8)
+    shapes = [(2048, 2607, 9, False), (1000, 1500, 5, True)]
+    args = [_band_args(rng, *shape, cuda) for shape in shapes]
+    scratch = [band.scratch_for(Rb, Cloc, a[3], cuda)
+               for (Rb, Cloc, _, _), a in zip(shapes, args)]
+    streams = [torch.cuda.Stream(cuda) for _ in shapes]
+    got = []
+    for a, sc, st in zip(args, scratch, streams):
+        st.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(st):
+            got.append(band.band_fill(*a, scratch=sc))
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    for (Rb, Cloc, _, _), a, g in zip(shapes, args, got):
+        _band_equal(g, band.band_fill_plain(*a), Rb, Cloc)
 
 
 @pytest.mark.cuda

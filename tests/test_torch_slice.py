@@ -201,3 +201,17 @@ def test_library_name_follows_source_hash(tmp_path, monkeypatch):
     before = kernels.library_path()
     (src / "a.cu").write_text("// two\n")
     assert kernels.library_path() != before
+
+
+def test_library_name_follows_header_hash(tmp_path, monkeypatch):
+    """An edit of a header that the sources include (``csrc/*.cuh``)
+    names a new library, so a stale one is never loaded."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "a.cu").write_text('#include "e.cuh"\n')
+    (src / "e.cuh").write_text("// one\n")
+    monkeypatch.setattr(kernels, "CSRC", src)
+    before = kernels.library_path()
+    (src / "e.cuh").write_text("// two\n")
+    assert kernels.library_path() != before
+    assert kernels.sources() == [src / "a.cu"]
