@@ -10,9 +10,13 @@ Phases, one JSON line each on stdout:
                 port's native host library, which must build;
   2. build:     every kernel from csa_tpu_torch/csrc with nvcc (sm_90a),
                 one nvcc per source, all started together;
-  3. mscan:     kernel against its plain version, every option, at the
-                collect cascade's shapes (Primates, 8 x 1 Mbp), with
-                torch.cummax / torch.cummin timed beside it;
+  3. mscan:     kernel against its plain version, every option of the
+                max and the min scan, at the collect cascade's shapes
+                (Primates, 8 x 1 Mbp), on i.i.d. values, the cascade's
+                own channels and drifting walks, with torch.cummax /
+                torch.cummin timed beside it; then the kernel alone,
+                with and without the reduction over channels, at 1 to
+                12 channels of 8,003,584;
   4. profile:   the profile-DP kernel's paths against the plain version's,
                 exact (ragged stale batch, non-default scoring, i = 64, R
                 or C = 1, tile multiples and +-1, a gap below one tile, a
@@ -22,9 +26,11 @@ Phases, one JSON line each on stdout:
                 and walk apart, other tile shapes beside) with the tiles,
                 the grid and the serial floor;
   5. nw:        the NW kernel's scores against the plain version's, exact:
-                the Primates oracle batch (135 x 17,408^2), ragged and
-                edge shapes, every strip width, several row bands; and 4
-                pairs against the native host library;
+                the Primates and Set3 oracle batches (135 x 17,408^2 and
+                162 x 20,480^2, both timed beside their bounds), ragged
+                and edge shapes, 1 to 88 row bands, more tickets than
+                the card holds workers; and 4 pairs against the native
+                host library;
   6. pipeline:  the port's CLI, full pipeline, on Primates and Set3, with
                 rotated and aligned output against the fixtures, the
                 integrity check and the kernels' launch counts (zeroed
@@ -59,9 +65,11 @@ Phases, one JSON line each on stdout:
                 rank-split batches inside align.dp_fill, and the band and
                 profile kernels' launch counts (zeroed just before, read
                 just after).
-Then the card's name and power limit, a JSON line with one entry per
-kernel (its time, the plain version's, the bound, the library call's),
-and the last line {"ok": true, "device": {...}}.  Any failed phase
+Then the card's name and power limit, one short summary line a kernel
+shape (its time beside its bound, so that the end of the output keeps
+every row), a JSON line with one entry per kernel (its time, the plain
+version's, the bound, the library call's), and the last line
+{"ok": true, "device": {...}}.  Any failed phase
 raises: the exit code is non-zero and the last line is not printed.
 Without a CUDA device it exits 2 before printing anything.
 
@@ -130,6 +138,24 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int, kernel: str):
+    """Mean device milliseconds a call of the kernels whose name holds
+    ``kernel``, from a torch.profiler trace of ``reps`` calls after one
+    warm-up; None where the trace holds no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [getattr(ev, "device_time_total", None) or ev.cuda_time_total
+          for ev in prof.key_averages() if kernel in ev.key]
+    return sum(us) / reps / 1e3 if us else None
 
 
 def wall_ms(fn):
@@ -239,6 +265,26 @@ def phase_build(kernels):
           "seconds": time.perf_counter() - t0})
 
 
+def _mscan_input(torch, gen, kind, M, N, is_min, reverse):
+    """An (M, N) int32 input on the card, made there, of the forms of
+    tests/torch_mscan_inputs.py: the collect cascade's channels
+    (where(mask, arange(N), -1) for the max scan, N for the min scan) and
+    walks drifting in the scan's direction set records in every tile,
+    where i.i.d. values leave almost every output equal to the carry."""
+    if kind == "cascade":
+        density = 0.5 ** (1 + torch.arange(M, device="cuda") % 10)
+        mask = torch.rand((M, N), generator=gen, device="cuda") < density[
+            :, None]
+        idx = torch.arange(N, dtype=torch.int32, device="cuda")
+        return torch.where(mask, idx, N if is_min else -1).to(torch.int32)
+    sign = (-1 if is_min else 1) * (-1 if reverse else 1)
+    steps = torch.randint(-2, 4, (M, N), generator=gen, device="cuda",
+                          dtype=torch.int32) * sign
+    start = torch.randint(-4096, 4096, (M, 1), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    return (start + steps.cumsum(1, dtype=torch.int32)).to(torch.int32)
+
+
 def phase_mscan(mscan, stats):
     import torch
 
@@ -257,8 +303,8 @@ def phase_mscan(mscan, stats):
         if cummin:
             kern = lambda: mscan.multi_cummin(  # noqa: E731
                 x, reverse=reverse, max_over_channels=reduce)
-            plain = lambda: -mscan.multi_cummax_plain(  # noqa: E731
-                -x, reverse=reverse, min_over_channels=reduce)
+            plain = lambda: mscan.multi_cummin_plain(  # noqa: E731
+                x, reverse=reverse, max_over_channels=reduce)
             lib = lambda: torch.cummin(x, 1).values  # noqa: E731
         else:
             kern = lambda: mscan.multi_cummax(  # noqa: E731
@@ -279,15 +325,52 @@ def phase_mscan(mscan, stats):
         lms = None if reverse or reduce else cuda_ms(lib, 5)
         out_elems = N if reduce else M * N
         bms, by = bound(4 * (M * N + out_elems), M * N)
-        emit({"phase": "mscan", "M": M, "N": N, "cummin": cummin,
-              "reverse": reverse, "reduce": reduce, "equal": True,
-              "ms": ms, "plain_ms": pms, "library_ms": lms,
-              "bound_ms": bms, "bound_by": by})
-        if (M, N, cummin, reverse, reduce) == (12, 278_528, False, False,
+        line = {"phase": "mscan", "M": M, "N": N, "cummin": cummin,
+                "reverse": reverse, "reduce": reduce,
+                "equal_on": ["uniform", "cascade", "walk"],
+                "ms": ms, "plain_ms": pms, "library_ms": lms,
+                "bound_ms": bms, "bound_by": by}
+        if (M, cummin, reverse, reduce) == (12, False, False, False):
+            # the kernel alone on the card, without the wrapper's host time
+            rec = dict(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                       bound_by=by,
+                       device_ms=device_ms(kern, 20, "mscan_kernel"))
+            if N == 278_528:
+                stats["mscan"].update(rec)
+            else:
+                stats["mscan"]["at_12x8003584"] = rec
+        if (M, N, cummin, reverse, reduce) == (12, 8_003_584, True, False,
                                                 False):
-            stats["mscan"].update(ms=ms, plain_ms=pms, library_ms=lms,
-                                  bound_ms=bms, bound_by=by)
+            stats["mscan"]["at_12x8003584"]["cummin"] = dict(
+                ms=ms, plain_ms=pms, library_ms=lms)
+        # the kernel and the plain version read x when called
+        for kind in ("cascade", "walk"):  # records in every tile
+            x = _mscan_input(torch, gen, kind, M, N, cummin, reverse)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            worst = max(worst, err)
+            check(torch.equal(got, want),
+                  f"mscan differs on {kind} input M={M} N={N} "
+                  f"cummin={cummin} reverse={reverse} reduce={reduce}")
+        emit(line)
     stats["mscan"]["max_abs_err"] = worst
+    # the reduction over channels against the channel count, on one N:
+    # the kernel alone (torch.profiler), reduced and not
+    N = 8_003_584
+    sweep = []
+    for M in (1, 2, 4, 8, 12):
+        x = torch.randint(-(2**30), 2**30, (M, N), generator=gen,
+                          device="cuda", dtype=torch.int32)
+        red = device_ms(lambda: mscan.multi_cummax(  # noqa: E731
+            x, min_over_channels=True), 20, "mscan_kernel")
+        full = device_ms(lambda: mscan.multi_cummax(x), 20,  # noqa: E731
+                         "mscan_kernel")
+        sweep.append({"M": M, "reduce_device_ms": red,
+                      "reduce_bound_ms": bound(4 * (M + 1) * N, M * N)[0],
+                      "scan_device_ms": full,
+                      "scan_bound_ms": bound(8 * M * N, M * N)[0]})
+    emit({"phase": "mscan_reduce_sweep", "N": N, "rows": sweep})
 
 
 def _profile_items(np, rng, shapes, i_of, stale, sc):
@@ -437,9 +520,9 @@ def phase_profile(profile, kernels, stats):
     stats["profile_dp"]["max_abs_err"] = worst
 
 
-def _primates_oracle_batch(fio, verification):
-    seqs = fio.load_fasta(str(FIX / "Primates.txt"), log=io.StringIO())
-    rotations = rotations_of(fio, FIX / "Primates-Rotated.fasta")
+def _oracle_batch(fio, verification, name):
+    seqs = fio.load_fasta(str(FIX / f"{name}.txt"), log=io.StringIO())
+    rotations = rotations_of(fio, FIX / f"{name}-Rotated.fasta")
     return verification.oracle_batch(seqs.encoded_all(), rotations)
 
 
@@ -450,13 +533,17 @@ def phase_nw(nw, fio, verification, stats):
     rng = np.random.default_rng(3)
     rand = lambda B, la, lb: (  # noqa: E731
         rng.integers(0, 4, size=(B, la)), rng.integers(0, 4, size=(B, lb)))
-    cases = [("primates_oracle", _primates_oracle_batch(fio, verification))]
+    cases = [("primates_oracle", _oracle_batch(fio, verification,
+                                               "Primates")),
+             ("set3_oracle", _oracle_batch(fio, verification, "Set3"))]
     for name, shape in [("la_ne_lb", (3, 40, 55)), ("la_1", (2, 1, 7)),
                         ("lb_1", (2, 7, 1)), ("odd_lengths", (4, 131, 62)),
-                        ("b_1", (1, 1000, 999)), ("strip_8", (2, 5000, 3001)),
-                        ("strip_16", (2, 12_001, 1777)),
-                        ("two_bands", (2, 20_481, 300)),
-                        ("three_bands", (1, 45_000, 64))]:
+                        ("b_1", (1, 1000, 999)),
+                        ("two_bands", (2, 600, 3001)),
+                        ("ragged_bands", (2, 4097, 1777)),
+                        ("bands_41", (2, 20_481, 300)),
+                        ("bands_88", (1, 45_000, 64)),
+                        ("tickets_above_grid", (4500, 600, 50))]:
         cases.append((name, rand(*shape)))
     worst = 0
     for name, (a_np, b_np) in cases:
@@ -475,7 +562,7 @@ def phase_nw(nw, fio, verification, stats):
         cells = B * la * lb
         bms, by = bound(4 * (B * la + B * lb + B), NW_OPS_PER_CELL * cells)
         rec = {"phase": "nw", "case": name, "B": B, "la": la, "lb": lb,
-               "S_T_bands": list(nw.plan(la)), "equal": True, "ms": ms,
+               "S_h_nb": list(nw.plan(la)), "equal": True, "ms": ms,
                "plain_ms": pms, "gcell_per_s": cells / ms / 1e6,
                "bound_ms": bms, "bound_by": by}
         if name == "primates_oracle":
@@ -485,6 +572,10 @@ def phase_nw(nw, fio, verification, stats):
             rec["native_host_equal_first_4"] = True
             stats["nw"].update(ms=ms, plain_ms=pms, library_ms=None,
                                bound_ms=bms, bound_by=by)
+        if name == "set3_oracle":
+            stats["nw"]["set3_oracle"] = dict(
+                B=B, la=la, lb=lb, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by)
         emit(rec)
     stats["nw"]["max_abs_err"] = worst
 
@@ -918,6 +1009,26 @@ def phase_sharded(cli, kernels, tools_files, seqpar, profile, single_walls):
     return launches
 
 
+def summary(stats, launches) -> None:
+    """One short line a kernel shape: ms, bound ms and share, plain and
+    library ms, launches on its path."""
+    rows = [("mscan 12x278528", stats["mscan"], "mscan"),
+            ("mscan 12x8003584", stats["mscan"]["at_12x8003584"], "mscan"),
+            ("profile_dp 8x8192^2", stats["profile_dp"], "profile_dp"),
+            ("nw 135x17408^2", stats["nw"], "nw"),
+            ("nw set3 oracle", stats["nw"]["set3_oracle"], "nw"),
+            ("band 2048x2607", stats["band"], "band")]
+    fmt = lambda v: "none" if v is None else f"{v:.4f}"  # noqa: E731
+    for label, st, name in rows:
+        dev = (f", kernel alone {fmt(st['device_ms'])} ms"
+               if st.get("device_ms") is not None else "")
+        print(f"summary {label}: {st['ms']:.4f} ms{dev}, bound "
+              f"{st['bound_ms']:.4f} ({st['bound_by']}, "
+              f"{st['bound_ms'] / st['ms']:.0%}), plain "
+              f"{st['plain_ms']:.3f}, library {fmt(st.get('library_ms'))}, "
+              f"launches {launches[name]}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -959,6 +1070,7 @@ def main() -> int:
                  "csa_tpu/dp/pallas_band.py:63"),
     }
     print(smi_line())
+    summary(stats, launches)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **stats[name]}

@@ -120,7 +120,11 @@ def dp_fill(
 
     # per-(row j, col c) substitution score and move costs
     # score(j,c) = MATCH*cnt[char_j] + INDEL*cnt[gap] + MISMATCH*(i - cnt[char_j] - cnt[gap])
-    cnt_char = scorevector[:, :4].take(row_codes, axis=1).T  # (nrows, ncols)
+    # code 4 (IUPAC N, R, Y, ...) takes a column of zero counts, as the
+    # kernels score it (dp/profile.py:_channels)
+    counts = np.concatenate(
+        [scorevector[:, :4], np.zeros((ncols, 1), scorevector.dtype)], axis=1)
+    cnt_char = counts.take(row_codes, axis=1).T  # (nrows, ncols)
     sub = (
         MATCH * cnt_char
         + INDEL * sv_gap[None, :]

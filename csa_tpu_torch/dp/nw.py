@@ -10,8 +10,10 @@ differ between the two sides never match anything.  The result is a
 ``(B,)`` int32 tensor on ``device``.
 
 On a CUDA device the whole batch is one launch of the hand-written
-kernel (``csrc/nw.cu``); on the CPU the plain version runs; any other
-device raises.  There is no fallback between the two.
+kernel (``csrc/nw.cu``: each pair's rows cut into bands of one warp, the
+bands on a ticket queue, each band handing its bottom row to the next in
+chunks of 256 columns); on the CPU the plain version runs; any
+other device raises.  There is no fallback between the two.
 ``nw_scores_host`` scores the same pairs with the native host library,
 one pair at a time.
 """
@@ -26,21 +28,19 @@ from .. import kernels, native
 __all__ = ["pairwise_nw_scores", "pairwise_nw_scores_plain",
            "nw_scores_host", "plan"]
 
-# (rows per thread, most threads a block) for each strip width compiled
-# into csrc/nw.cu; the register budget caps the threads of the widest
-STRIPS = ((4, 1024), (8, 1024), (16, 1024), (32, 640))
+STRIP = 16  # rows a lane: csrc/nw.cu's kStrip, fixed when it compiles
+LANES = 32  # lanes a warp: a band is at most LANES * STRIP rows
 
 
-def plan(la: int):
-    """(rows per thread S, threads T, row bands) of the kernel's launch:
-    the narrowest strip whose block covers la rows in one band, else the
-    widest strip over several bands."""
-    for S, tmax in STRIPS:
-        if la <= S * tmax:
-            break
-    threads = -(-la // S)
-    T = min(tmax, -(-threads // 32) * 32)
-    return S, T, -(-la // (S * T))
+def plan(la: int, strip: int = STRIP):
+    """(rows a lane S, rows a band h, bands nb) of the kernel's launch:
+    la rows cut into the fewest bands of at most ``LANES * S`` rows, of
+    nearly equal height, each a multiple of S but the last, which takes
+    what is left: ``(nb - 1) * h < la <= nb * h``.  The kernel's S is
+    ``STRIP``; another ``strip`` only shapes the tests' numpy twin."""
+    units = -(-la // strip)  # S-row strips the rows need
+    per = -(-units // -(-units // LANES))  # strips a band
+    return strip, per * strip, -(-units // per)
 
 
 def _as_codes(x, device) -> torch.Tensor:
@@ -85,15 +85,18 @@ def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     B, la = a.shape
     lb = b.shape[1]
     out = torch.empty(B, dtype=torch.int32, device=a.device)
-    S, T, bands = plan(la)
-    # rows of a band boundary, carried to the next band (one per pair)
-    scratch = (torch.empty((B, lb + 1), dtype=torch.int32, device=a.device)
-               if bands > 1 else None)
+    _, h, nb = plan(la)
+    # one carry row a (pair, band boundary), and the ticket followed by
+    # one published column count a boundary
+    carry = (torch.empty((B, nb - 1, lb), dtype=torch.int32, device=a.device)
+             if nb > 1 else None)
+    counters = torch.zeros(1 + B * (nb - 1), dtype=torch.int32,
+                           device=a.device)
     kernels.COUNTS["nw"] += 1
     kernels.call(
-        "csa_nw_scores", a.data_ptr(), b.data_ptr(), la, lb, B, S, T,
-        out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
-        kernels.stream_ptr(a.device),
+        "csa_nw_scores", a.data_ptr(), b.data_ptr(), la, lb, B, h, nb,
+        out.data_ptr(), 0 if carry is None else carry.data_ptr(),
+        counters.data_ptr(), kernels.stream_ptr(a.device),
     )
     return out
 

@@ -51,12 +51,12 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # C entry -> argument types (pointers and the stream are c_void_p)
 _SIGNATURES = {
-    "csa_mscan": [_VP, _VP, _VP, _I, _LL, _I, _I, _VP],
+    "csa_mscan": [_VP, _VP, _VP, _I, _LL, _I, _I, _I, _VP],
     "csa_profile_fill": [
         _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _VP,
     ],
     "csa_profile_walk": [_VP, _VP, _I, _I, _I, _I, _VP, _VP, _VP],
-    "csa_nw_scores": [_VP, _VP, _I, _I, _I, _I, _I, _VP, _VP, _VP],
+    "csa_nw_scores": [_VP, _VP, _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP],
     "csa_band_fill": [
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I,
         _I, _I, _I, _VP,

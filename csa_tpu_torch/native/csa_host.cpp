@@ -293,7 +293,7 @@ class FillWorker {
 // single- vs multi-thread exactness tests.
 std::atomic<int64_t> g_mt_threshold{int64_t(8) << 20};
 
-// Profile NW fill core.  row_codes: R entries in [0,4); sv: (C,5) int32
+// Profile NW fill core.  row_codes: R entries in [0,4]; sv: (C,5) int32
 // row-major counts; i: number of previously aligned sequences.
 // top_row: C+1 boundary values for dp[0][*]; edge_rowgap: per-row scale
 // for dp[j][0] = j * edge_rowgap.  These are passed in because the
@@ -316,8 +316,11 @@ int32_t dp_fill_core(const int8_t* row_codes, int32_t R,
   }
   for (int32_t c = 0; c <= C; ++c) buf0[c] = top_row[c];
   // per-column substitution profile for each character code (transposed
-  // scorevector), so the row loop reads contiguous memory
-  std::vector<int32_t> subcol(4 * C);
+  // scorevector), so the row loop reads contiguous memory.  Row 4 is the
+  // code the loader gives IUPAC characters (N, R, Y, ...): no count of the
+  // column matches it, as the device kernels score it
+  // (dp/profile.py:_channels).
+  std::vector<int32_t> subcol(5 * C);
   for (int32_t c = 0; c < C; ++c) {
     const int32_t* col = sv + (int64_t)c * 5;
     const int32_t g = col[GAP];
@@ -325,6 +328,7 @@ int32_t dp_fill_core(const int8_t* row_codes, int32_t R,
       subcol[(int64_t)a * C + c] =
           MATCH * col[a] + INDEL * g + MISMATCH * (i - col[a] - g);
     }
+    subcol[(int64_t)4 * C + c] = INDEL * g + MISMATCH * (i - g);
   }
   std::vector<int32_t> m1(C + 1);
   std::vector<int8_t> d1(C + 1);

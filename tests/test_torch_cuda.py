@@ -14,6 +14,7 @@ from csa_tpu_torch import kernels
 from csa_tpu_torch.dp import band, nw, profile, seqpar
 from csa_tpu_torch.index import mscan
 from csa_tpu_torch.parallel.sharded import make_mesh
+from torch_mscan_inputs import KINDS, mscan_input
 
 
 @pytest.fixture
@@ -23,17 +24,13 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("M,N", [(1, 1), (3, 2047), (12, 70_001),
-                                 (64, 4097)])
-def test_mscan_kernel_matches_plain(cuda, M, N):
-    rng = np.random.default_rng(M * 7 + N)
-    x = torch.from_numpy(
-        rng.integers(-(2**30), 2**30, size=(M, N)).astype(np.int32)
-    ).to(cuda)
+def _mscan_all_options(make):
+    """Every option of both scans, one launch each, exact; ``make(is_min,
+    reverse)`` gives the input of that scan."""
     for reverse in (False, True):
         for reduce in (False, True):
             before = kernels.COUNTS["mscan"]
+            x = make(False, reverse)
             got = mscan.multi_cummax(x, reverse=reverse,
                                      min_over_channels=reduce)
             assert kernels.COUNTS["mscan"] == before + 1
@@ -41,11 +38,54 @@ def test_mscan_kernel_matches_plain(cuda, M, N):
                                             min_over_channels=reduce)
             torch.cuda.synchronize()
             assert torch.equal(got, want)
+            x = make(True, reverse)
             got = mscan.multi_cummin(x, reverse=reverse,
                                      max_over_channels=reduce)
-            want = -mscan.multi_cummax_plain(-x, reverse=reverse,
-                                             min_over_channels=reduce)
+            assert kernels.COUNTS["mscan"] == before + 2
+            want = mscan.multi_cummin_plain(x, reverse=reverse,
+                                            max_over_channels=reduce)
+            torch.cuda.synchronize()
             assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("M,N", [(1, 1), (3, 2047), (12, 70_001),
+                                 (64, 4097), (12, 4095), (12, 8_003_584)])
+def test_mscan_kernel_matches_plain(cuda, M, N, kind):
+    """One tile and less, tile multiples +- 1 (the scalar path), and the
+    8 x 1 Mbp rotation's 12 x 8,003,584 (the 16-byte path); on i.i.d.
+    values, the collect cascade's channels and drifting walks, which set
+    records in every tile (tests/torch_mscan_inputs.py)."""
+    _mscan_all_options(lambda is_min, reverse: torch.from_numpy(mscan_input(
+        kind, M, N, is_min=is_min, reverse=reverse, seed=M * 7 + N)
+    ).to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_mscan_kernel_unaligned_rows(cuda, kind):
+    """Rows whose start is not 16-byte aligned take the scalar path; the
+    i.i.d. values hold the extremes of int32."""
+    M, N = 5, 3 * mscan.TILE
+
+    def make(is_min, reverse):
+        flat = torch.empty(M * N + 1, dtype=torch.int32)
+        if kind == "uniform":
+            rng = np.random.default_rng(4)
+            flat[:] = torch.from_numpy(rng.integers(
+                -(2**31), 2**31, size=M * N + 1, dtype=np.int64
+            ).astype(np.int32))
+            flat[7] = -(2**31)
+            flat[9000] = 2**31 - 1
+        else:
+            flat[1:] = torch.from_numpy(mscan_input(
+                kind, M, N, is_min=is_min, reverse=reverse, seed=4).ravel())
+        x = flat.to(cuda)[1:].view(M, N)
+        assert x.data_ptr() % 16 != 0
+        return x
+
+    _mscan_all_options(make)
 
 
 def _items(rng, G, rmax, cmax, i_max=17, stale=True):
@@ -165,8 +205,8 @@ def test_profile_two_launches_on_two_streams(cuda):
                                      (2, 5000, 301), (2, 12_001, 77),
                                      (2, 20_481, 50), (1, 45_000, 9)])
 def test_nw_kernel_matches_plain(cuda, B, la, lb):
-    """Every strip width of csrc/nw.cu, one to three row bands, ragged and
-    edge shapes; exact against the plain version."""
+    """One to 88 row bands, band heights that do not divide la, ragged
+    and edge shapes; exact against the plain version."""
     rng = np.random.default_rng(B * la + lb)
     a = torch.from_numpy(rng.integers(0, 4, size=(B, la))).to(cuda)
     b = torch.from_numpy(rng.integers(0, 4, size=(B, lb))).to(cuda)
@@ -179,6 +219,42 @@ def test_nw_kernel_matches_plain(cuda, B, la, lb):
     if la * lb <= 1_000_000:
         host = nw.nw_scores_host(a.cpu().numpy(), b.cpu().numpy())
         np.testing.assert_array_equal(got.cpu().numpy(), host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,la,lb", [(4500, 600, 50), (1, 45_000, 3000)])
+def test_nw_kernel_queue_shapes(cuda, B, la, lb):
+    """More tickets than the card holds workers at once (4,500 pairs of
+    two bands), and one pair of 88 bands with chunks handed down a long
+    chain; exact against the plain version."""
+    rng = np.random.default_rng(B + la)
+    a = torch.from_numpy(rng.integers(0, 4, size=(B, la))).to(cuda)
+    b = torch.from_numpy(rng.integers(0, 4, size=(B, lb))).to(cuda)
+    got = nw.pairwise_nw_scores(a, b, cuda)
+    want = nw.pairwise_nw_scores_plain(a.to(torch.int32), b.to(torch.int32))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_nw_two_launches_on_two_streams(cuda):
+    """Two NW batches at once on two streams, each with its own tickets
+    and carry rows, each exact."""
+    rng = np.random.default_rng(12)
+    shapes = [(40, 3000, 2500), (7, 5000, 700)]
+    pairs = [(torch.from_numpy(rng.integers(0, 4, size=(B, la))).to(cuda),
+              torch.from_numpy(rng.integers(0, 4, size=(B, lb))).to(cuda))
+             for B, la, lb in shapes]
+    streams = [torch.cuda.Stream(cuda) for _ in shapes]
+    got = []
+    for (a, b), st in zip(pairs, streams):
+        st.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(st):
+            got.append(nw.pairwise_nw_scores(a, b, cuda))
+    torch.cuda.synchronize()
+    for (a, b), g in zip(pairs, got):
+        assert torch.equal(g, nw.pairwise_nw_scores_plain(
+            a.to(torch.int32), b.to(torch.int32)))
 
 
 def _band_args(rng, Rb, Cloc, i, rank0, dev):

@@ -60,14 +60,99 @@ def test_unsupported_device_raises():
 @pytest.mark.parametrize("la", [1, 31, 4096, 4097, 17_408, 20_480, 20_481,
                                 45_000])
 def test_plan_covers_rows(la):
-    """The kernel's launch plan: S x T x bands covers every row, T is a
-    whole number of warps within the strip's thread cap, and one band is
-    used whenever a strip width allows it."""
-    S, T, bands = nw.plan(la)
-    cap = dict(nw.STRIPS)[S]
-    assert T % 32 == 0 and 32 <= T <= cap
-    assert S * T * bands >= la > S * T * (bands - 1)
-    assert (bands == 1) == (la <= max(s * t for s, t in nw.STRIPS))
+    """The kernel's launch plan: the fewest bands of at most one warp's
+    rows (LANES x S) that cover la, of nearly equal height, each a
+    multiple of S but the last, which is not empty."""
+    S, h, nb = nw.plan(la)
+    assert S == nw.STRIP and h % S == 0 and S <= h <= nw.LANES * S
+    assert (nb - 1) * h < la <= nb * h
+    assert nb == -(-la // (nw.LANES * S))
+    assert h < la / nb + 2 * S
+
+
+def _band_twin(a, b, *, strip, chunk, resident, seed):
+    """A numpy twin of csrc/nw.cu's band pipeline, in W = H + i + j form.
+
+    The bands of ``plan(la, strip)`` are tickets, band-major across pairs;
+    at most ``resident`` run at once and a random one moves at each
+    step.  A band computes its rows a column at a time (a column of a band
+    is a running max down its rows); before each chunk of ``chunk``
+    columns it waits until the band above has published that many
+    columns of its carry row.  The band's last row goes into the carry
+    row below, and the column count is published after every chunk.  A
+    carry value is poisoned until written, so a read before its
+    publication shows."""
+    B, la = a.shape
+    lb = b.shape[1]
+    S, h, nb = nw.plan(la, strip)
+    poison = -(10**9)
+    carry = np.full((B, max(nb - 1, 0), lb), poison, dtype=np.int64)
+    done = np.zeros((B, max(nb - 1, 0)), dtype=np.int64)
+    out = np.zeros(B, dtype=np.int64)
+
+    def band(ticket):
+        k, p = divmod(ticket, B)
+        rows = np.arange(k * h, min((k + 1) * h, la))
+        col = np.zeros(len(rows), dtype=np.int64)  # W at column 0
+        top_prev = 0
+        for c0 in range(0, lb, chunk):
+            n = min(chunk, lb - c0)
+            if k > 0:
+                while done[p, k - 1] < c0 + n:
+                    yield "wait"
+                top = carry[p, k - 1, c0:c0 + n].copy()
+                assert (top != poison).all(), "carry read before publication"
+            else:
+                top = np.zeros(n, dtype=np.int64)
+            for x in range(n):
+                j = c0 + x + 1
+                match = a[p, rows] == b[p, j - 1]
+                above = np.concatenate([[top_prev], col[:-1]])
+                cand = np.maximum(above + np.where(match, 3, 1), col)
+                col = np.maximum.accumulate(
+                    np.concatenate([[top[x]], cand]))[1:]
+                top_prev = top[x]
+                if k < nb - 1:
+                    carry[p, k, j - 1] = col[-1]
+            if k < nb - 1:
+                done[p, k] = c0 + n
+            yield
+        if k == nb - 1:
+            out[p] = col[-1] - la - lb
+
+    rng = np.random.default_rng(seed)
+    running, nxt = [], 0
+    while running or nxt < B * nb:
+        while len(running) < resident and nxt < B * nb:
+            running.append(band(nxt))
+            nxt += 1
+        i = int(rng.integers(len(running)))
+        try:
+            while next(running[i]) == "wait":
+                assert len(running) > 1, "band pipeline deadlock"
+                i = int(rng.integers(len(running)))
+        except StopIteration:
+            running.pop(i)
+    return out, nb
+
+
+@pytest.mark.parametrize("la,lb,want_nb", [(1, 9, 1), (40, 33, 1),
+                                           (65, 40, 2), (130, 17, 3),
+                                           (200, 50, 4), (300, 70, 5)])
+def test_band_twin_matches_plain(la, lb, want_nb):
+    """Bands of at most 64 rows (a strip of 2), heights that do not
+    divide la, 1 to 5 bands, carry rows handed over in chunks of 8
+    columns, in a seeded interleaving."""
+    rng = np.random.default_rng(la + lb)
+    a = rng.integers(0, 4, size=(3, la))
+    b = rng.integers(0, 4, size=(3, lb))
+    for resident in (2, 7):
+        got, nb = _band_twin(a, b, strip=2, chunk=8, resident=resident,
+                             seed=la * resident)
+        assert nb == want_nb
+        want = nw.pairwise_nw_scores_plain(torch.from_numpy(a).int(),
+                                           torch.from_numpy(b).int())
+        np.testing.assert_array_equal(got, want.numpy())
 
 
 def _family(k=4, n=96, seed=5):
