@@ -61,12 +61,26 @@ Phases, one JSON line each on stdout:
                 supersteps' device span (CUDA events around every band);
  11. sharded:   the port's CLI with --backend sharded --mesh 8x1 on
                 Primates and Set3: output against the fixtures, the
-                seqpar dispatches, the walls of the giants and of the
-                rank-split batches inside align.dp_fill, and the band and
-                profile kernels' launch counts (zeroed just before, read
-                just after).
+                rotation sharded too (its profile holds
+                rot.block_stage[sharded] and idx.replicate), the seqpar
+                dispatches, the walls of the giants and of the rank-split
+                batches inside align.dp_fill, and the band and profile
+                kernels' launch counts (zeroed just before, read just
+                after);
+ 12. sharded_rotation: the 8 x 1 Mbp set in mode R over ranks of the one
+                card: analyze(mesh=...) at 1, 2, 4 and 8 ranks and the
+                CLI at --backend sharded --mesh 8x1, each twice, their
+                rotations against the native engine's and the
+                single-device port's, the two runs of a mesh against each
+                other, and mscan's launches (at least three a rank, zeroed
+                just before each run, read just after); then
+                parallel.scaling.measure on the same set (walls and stage
+                walls at each rank count, the exchange bytes, the sharded
+                argsort, the sharded alignment, Set3's giant at 8 ranks);
+                and Primates at --mesh 3x1 (the single-device stage on the
+                mesh's first rank), twice, against the fixture.
 Then the card's name and power limit, one short summary line a kernel
-shape (its time beside its bound, so that the end of the output keeps
+shape and one of the sharded rotation's walls (its time beside its bound, so that the end of the output keeps
 every row), a JSON line with one entry per kernel (its time, the plain
 version's, the bound, the library call's), and the last line
 {"ok": true, "device": {...}}.  Any failed phase
@@ -709,16 +723,20 @@ def _mbp_set(n=1_000_000, k=8, seed=7):
     return rows
 
 
-def phase_mbp(cli, rot, kernels, fio):
+def _write_mbp(path: Path) -> None:
     import numpy as np
 
     letters = np.frombuffer(b"ACGT", dtype=np.uint8)
+    with open(path, "w") as f:
+        for i, row in enumerate(_mbp_set()):
+            f.write(f">s{i}\n{letters[row].tobytes().decode()}\n")
+
+
+def phase_mbp(cli, rot, kernels, fio):
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         src = tmp / "mbp.txt"
-        with open(src, "w") as f:
-            for i, row in enumerate(_mbp_set()):
-                f.write(f">s{i}\n{letters[row].tobytes().decode()}\n")
+        _write_mbp(src)
         kernels.reset_counts()
         _, port_wall = run_port_cli(cli, tmp, ["R", "mbp.txt"])
         check(kernels.COUNTS["mscan"] > 0, "mbp: mscan was not launched")
@@ -738,6 +756,7 @@ def phase_mbp(cli, rot, kernels, fio):
           "port_cli_R_wall_s": port_wall,
           "port_analyze_wall_s": port_analyze_ms / 1e3,
           "native_cli_R_wall_s": native_wall})
+    return want, port_analyze_ms / 1e3
 
 
 def _band_args(torch, np, profile, rng, Rb, Cloc, i, rank0, sc):
@@ -1000,6 +1019,9 @@ def phase_sharded(cli, kernels, tools_files, seqpar, profile, single_walls):
                     launches[k] = launches.get(k, 0) + v
         check(rec["sharded"]["seqpar_dispatches"] > 0,
               f"{name}: no merge reached dp_path_seqpar")
+        check({"rot.block_stage[sharded]", "idx.replicate"}
+              <= set(rec["sharded"]["phases_s"]),
+              f"{name}: the rotation did not run sharded")
         out[name] = rec
     check(launches["band"] > 0 and launches["profile_dp"] > 0,
           f"a kernel of the sharded path was not launched: {launches}")
@@ -1007,6 +1029,115 @@ def phase_sharded(cli, kernels, tools_files, seqpar, profile, single_walls):
           "aligned_rows_identical": True, "integrity": True,
           "launches": launches, "sets": out})
     return launches
+
+
+def _profile_phases(text: str):
+    return {l.split()[1] for l in text.splitlines() if l.startswith(">   ")}
+
+
+def phase_sharded_rotation(cli, rot, kernels, fio, scaling, native_rot,
+                           single_analyze_s):
+    from csa_tpu_torch.parallel.sharded import make_mesh
+    from csa_tpu_torch.utils import PROFILER
+
+    def blocks(res):
+        return (list(map(int, res.rotations)), res.num_collected,
+                res.num_after_suffix, res.num_after_unique, res.num_chains,
+                res.block_depths.tolist())
+
+    out = {"single_device_analyze_s": single_analyze_s}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _write_mbp(tmp / "mbp.txt")
+        seqs = fio.load_fasta(str(tmp / "mbp.txt"), log=io.StringIO())
+        single = rot.analyze(seqs, device="cuda", log=io.StringIO())
+        check(list(map(int, single.rotations)) == native_rot,
+              "sharded_rotation: the single-device port's rotations differ "
+              "from the native engine's")
+        analyze = {}
+        for n in (1, 2, 4, 8):
+            mesh = make_mesh(n, devices=["cuda"])
+            runs = []
+            for _ in range(2):
+                kernels.reset_counts()
+                res, ms = wall_ms(lambda: rot.analyze(
+                    seqs, device="cuda", log=io.StringIO(), mesh=mesh))
+                runs.append((res, ms / 1e3, kernels.COUNTS["mscan"]))
+            for res, _, launches in runs:
+                check(blocks(res) == blocks(single),
+                      f"sharded_rotation: {n} ranks differ from the "
+                      "single-device port")
+                check(launches >= 3 * n,
+                      f"sharded_rotation: {launches} mscan launches at {n} "
+                      "ranks")
+            analyze[n] = {"wall_s": [r[1] for r in runs],
+                          "mscan_launches": [r[2] for r in runs]}
+        out["analyze"] = analyze
+        cli_runs = []
+        for _ in range(2):
+            (tmp / "mbp-Rotated.fasta").unlink(missing_ok=True)
+            PROFILER.reset()
+            kernels.reset_counts()
+            text, wall = run_port_cli(cli, tmp, [
+                "R", "mbp.txt", "--backend", "sharded", "--mesh", "8x1",
+                "--profile"])
+            check(kernels.COUNTS["mscan"] >= 3 * 8,
+                  "sharded_rotation: the CLI's ranks did not launch mscan")
+            check({"rot.block_stage[sharded]", "idx.replicate"}
+                  <= _profile_phases(text),
+                  "sharded_rotation: the CLI's rotation did not run sharded")
+            rotated = (tmp / "mbp-Rotated.fasta").read_bytes()
+            check(rotations_of(fio, tmp / "mbp-Rotated.fasta") == native_rot,
+                  "sharded_rotation: the CLI's rotations differ from the "
+                  "native engine's")
+            cli_runs.append((rotated, wall))
+        check(cli_runs[0][0] == cli_runs[1][0],
+              "sharded_rotation: two CLI runs at --mesh 8x1 differ")
+        out["cli_8x1_wall_s"] = [w for _, w in cli_runs]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        copy_fixture(tmp, "Primates")
+        walls = []
+        for _ in range(2):
+            (tmp / "Primates-Rotated.fasta").unlink(missing_ok=True)
+            PROFILER.reset()
+            text, wall = run_port_cli(cli, tmp, [
+                "R", "Primates.txt", "--backend", "sharded", "--mesh", "3x1",
+                "--profile"])
+            phases = _profile_phases(text)
+            check("rot.block_stage[sharded]" in phases
+                  and "idx.replicate" not in phases,
+                  "sharded_rotation: 3 ranks did not take the single-device "
+                  "stage")
+            check((tmp / "Primates-Rotated.fasta").read_bytes()
+                  == (FIX / "Primates-Rotated.fasta").read_bytes(),
+                  "sharded_rotation: Primates at --mesh 3x1 differs")
+            walls.append(wall)
+        out["primates_3x1_wall_s"] = walls
+    m = scaling.measure(k=8, n=1_000_000, seed=7, ranks=(1, 2, 4, 8),
+                        reps=2, device="cuda")
+    check(m["argsort"]["exact_vs_stable_sort"],
+          "sharded_rotation: sharded_argsort differs from torch.sort")
+    check(m["sharded_alignment_parity"],
+          "sharded_rotation: the sharded alignment differs")
+    check(m["giant_merge_seqpar"]["path_identical_to_native"] is True,
+          "sharded_rotation: the giant's path differs from the native one")
+    out["scaling"] = m
+    emit({"phase": "sharded_rotation", "rotations_equal_native": True,
+          "runs_agree": True, **out})
+    return out
+
+
+def summary_sharded_rotation(out) -> None:
+    m = out["scaling"]
+    fmt = lambda d: "/".join(f"{d[n]:.3f}" for n in (1, 2, 4, 8))  # noqa
+    mb = "/".join(f"{m['exchange_bytes'][n] / 1e6:.0f}" for n in (1, 2, 4, 8))
+    print(f"summary sharded_rotation 8x1Mbp: block stage single "
+          f"{m['single_device_wall_s']:.3f} s, ranks 1/2/4/8 "
+          f"{fmt(m['walls_s'])} s; analyze single "
+          f"{out['single_device_analyze_s']:.3f}, ranks "
+          f"{fmt({n: min(v['wall_s']) for n, v in out['analyze'].items()})}"
+          f" s; exchange MB {mb}", flush=True)
 
 
 def summary(stats, launches) -> None:
@@ -1040,6 +1171,7 @@ def main() -> int:
     from csa_tpu_torch.dp import band, nw, profile, seqpar
     from csa_tpu_torch.index import mscan
     from csa_tpu_torch.io import fasta as fio
+    from csa_tpu_torch.parallel import scaling
     from csa_tpu_torch.rotation import pipeline as rot
     from csa_tpu_torch.rotation import verification
     from csa_tpu_torch.tools import files as tools_files
@@ -1052,11 +1184,13 @@ def main() -> int:
     phase_nw(nw, fio, verification, stats)
     launches, walls = phase_pipeline(cli, kernels, tools_files)
     launches["nw"] = phase_verify(cli, kernels, nw, verification)["nw"]
-    phase_mbp(cli, rot, kernels, fio)
+    mbp_native, mbp_single_s = phase_mbp(cli, rot, kernels, fio)
     phase_band(band, stats)
     phase_seqpar(seqpar, profile, band, kernels, native)
     launches["band"] = phase_sharded(cli, kernels, tools_files, seqpar,
                                       profile, walls)["band"]
+    sharded_rot = phase_sharded_rotation(cli, rot, kernels, fio, scaling,
+                                         mbp_native, mbp_single_s)
     check("jax" not in sys.modules, "jax was imported")
     check("csa_tpu" not in sys.modules, "the JAX package was imported")
 
@@ -1071,6 +1205,7 @@ def main() -> int:
     }
     print(smi_line())
     summary(stats, launches)
+    summary_sharded_rotation(sharded_rot)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **stats[name]}

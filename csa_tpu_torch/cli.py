@@ -16,10 +16,13 @@ M         Convert aligned FASTA -> MSF
 Modes N, R and A run on ``--device`` (default ``cuda``); I, C, S and M
 are host tools.  Without a CUDA device, ``--device cuda`` exits
 non-zero; the CPU runs only when asked for with ``--device cpu``.
-``--backend sharded`` spreads the alignment's gap DP over a mesh of
-``--mesh SEQxPOS`` ranks (default: one per visible card) laid out on
+``--backend sharded`` spreads the rotation block stage (modes N and R)
+and the alignment's gap DP (modes N and A) over a mesh of ``--mesh
+SEQxPOS`` ranks (default: one per visible card) laid out on
 ``--device``'s type, several ranks to a card when there are more ranks
-than cards; rotation stays on the single-device path.
+than cards.  Rotation takes the sharded index build and collect front
+on a power-of-two rank count, and the single-device stage on the mesh's
+first rank on any other; the output is the same.
 ``--verify-rotations`` (modes N and R) scores each chosen rotation
 against sampled alternatives with the pairwise NW kernel on
 ``--device`` (:mod:`csa_tpu_torch.rotation.verification`).
@@ -101,7 +104,7 @@ def run_rotation(args, seqs: fio.SequenceSet):
     try:
         res = rot.analyze(seqs, device=args.device, pack_w=args.kw["pack_w"],
                           max_interval=args.kw["max_interval"],
-                          log=sys.stdout)
+                          log=sys.stdout, mesh=args.rank_mesh)
     except rot.RotationError as e:
         raise SystemExit(f"\n> ERROR: {e}")
     if args.verify_rotations:
@@ -156,8 +159,8 @@ def run_alignment(args, seqs: fio.SequenceSet, rotations) -> str:
 
     alignfile = output_filename(args.input, ALIGNMENT_SUFFIX)
     print("> Running multiple sequence alignment...")
-    result = msa.align(seqs, rotations, device=args.device, mesh=_mesh(args),
-                       **scoring_kwargs(args.kw))
+    result = msa.align(seqs, rotations, device=args.device,
+                       mesh=args.rank_mesh, **scoring_kwargs(args.kw))
     msa.save_alignment(seqs, rotations, result, alignfile)
     rotfile = output_filename(args.input, ROTATIONS_SUFFIX)
     source = rotfile if os.path.exists(rotfile) else args.input
@@ -179,9 +182,8 @@ def main(argv=None) -> int:
     parser.add_argument("--backend", choices=["device", "sharded"],
                         default="device",
                         help="device: one device (default); sharded: the "
-                             "alignment's gap DP over a mesh of ranks on "
-                             "--device's type (rotation stays on one "
-                             "device)")
+                             "rotation block stage and the alignment's gap "
+                             "DP over a mesh of ranks on --device's type")
     parser.add_argument("--mesh", type=_parse_mesh, default=None,
                         metavar="SEQxPOS",
                         help="rank mesh of --backend sharded, e.g. 8x1 "
@@ -247,6 +249,7 @@ def main(argv=None) -> int:
         return 0
     if mode in ("N", "R", "A"):
         args.device = _resolve_device(args.device)
+        args.rank_mesh = _mesh(args)
 
     with torch_trace(os.environ.get("CSA_TPU_TORCH_TRACE")):
         if mode in ("N", "R", "A"):

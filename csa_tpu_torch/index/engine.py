@@ -164,14 +164,11 @@ def _lcp_step(off, rank_t, a, b, n_a, n_b, h: int, *, n_max: int):
     return torch.where(rank_t[ga] == rank_t[gb], off + h, off)
 
 
-def _lcp_tail(off, packed, order, lengths, *, n_max: int, pack_w: int):
-    """Sub-pack_w tail: compare the two differing packed windows digit by
-    digit.  Returns the (N,) raw and capped lcp (index i = boundary
-    sa[i-1]/sa[i])."""
-    n_sorted = _n_of_flat(lengths, n_max)[order]
-    valid_s = (order % n_max) < n_sorted
-    a, b = order[:-1], order[1:]
-    n_a, n_b = n_sorted[:-1], n_sorted[1:]
+def _pair_lcp(off, packed, a, b, n_a, n_b, *, n_max: int, pack_w: int):
+    """Raw and capped LCP of adjacent sorted rotations ``a``, ``b`` (flat
+    ids, lengths ``n_a``, ``n_b``) from the binary descent's offset: the
+    sub-pack_w tail compares the two differing packed windows digit by
+    digit; a pair with a padded slot gets 0."""
     base_a = (a // n_max) * n_max
     base_b = (b // n_max) * n_max
     ka = packed[base_a + (a - base_a + off) % n_a]
@@ -182,11 +179,19 @@ def _lcp_tail(off, packed, order, lengths, *, n_max: int, pack_w: int):
         sh = _ALPHA ** (pack_w - 1 - i)
         still = still & ((ka // sh) % _ALPHA == (kb // sh) % _ALPHA)
         run = run + still.to(run.dtype)
-    raw_pair = torch.where(valid_s[:-1] & valid_s[1:], off + run, 0)
+    valid = ((a % n_max) < n_a) & ((b % n_max) < n_b)
+    raw_pair = torch.where(valid, off + run, 0)
+    return raw_pair, torch.minimum(raw_pair, torch.minimum(n_a, n_b))
+
+
+def _lcp_tail(off, packed, order, lengths, *, n_max: int, pack_w: int):
+    """The (N,) raw and capped lcp (index i = boundary sa[i-1]/sa[i])."""
+    n_sorted = _n_of_flat(lengths, n_max)[order]
+    raw_pair, lcp_pair = _pair_lcp(off, packed, order[:-1], order[1:],
+                                   n_sorted[:-1], n_sorted[1:], n_max=n_max,
+                                   pack_w=pack_w)
     zero = off.new_zeros(1)
-    raw = torch.cat([zero, raw_pair])
-    lcp = torch.cat([zero, torch.minimum(raw_pair, torch.minimum(n_a, n_b))])
-    return raw, lcp
+    return torch.cat([zero, raw_pair]), torch.cat([zero, lcp_pair])
 
 
 def _device_build(encoded: Sequence[np.ndarray], device, *, pack_w: int = 12):
@@ -236,43 +241,46 @@ def _device_build(encoded: Sequence[np.ndarray], device, *, pack_w: int = 12):
     return (order, lcp, lengths), (k, n_max, mg0)
 
 
-def _collect_front(order, lcp, lengths, *, k: int, n_max: int, tdeep: int,
-                   pack_w: int):
-    """PSV/NSV intervals, all-sequences coverage, canonical
-    representatives and deepest-node marking.  Returns (collected, start,
-    end) over the N sorted boundaries."""
-    n_total = order.shape[0]
-    dev = order.device
-    idx = torch.arange(n_total, device=dev)
-    pos_sorted = order % n_max
-    seq_sorted = order // n_max
-    valid_s = pos_sorted < _n_of_flat(lengths, n_max)[order]
-
-    # PSV/NSV for lcp in [1, pack_w]: one threshold scan per value, both
-    # directions, through the multi-channel scan.  A boundary's own lcp is
-    # never "below" itself, so the inclusive scans are exactly psv/nsv.
-    vv = torch.arange(1, pack_w + 1, device=dev)[:, None]
+def _threshold_chans(lcp, idx, n_total: int, pack_w: int):
+    """The PSV and NSV threshold scans' (pack_w, n) int32 inputs: channel
+    v - 1 holds a boundary's position where its lcp is below v, else -1
+    (forward) or n_total (backward)."""
+    vv = torch.arange(1, pack_w + 1, device=lcp.device)[:, None]
     below = lcp[None, :] < vv
     idx32 = idx.to(torch.int32)
-    rs_all = mscan.multi_cummax(torch.where(below, idx32, -1))
-    ns_all = mscan.multi_cummin(torch.where(below, idx32, n_total),
-                                reverse=True)
+    return (torch.where(below, idx32, -1),
+            torch.where(below, idx32, n_total))
+
+
+def _sparse_min(lcp, tdeep: int):
+    """Levels of the range-min table of the deep descent over the whole
+    lcp: level t holds the min of 2**t boundaries from each position."""
+    n_total = lcp.shape[0]
+    minv = [lcp]
+    for t in range(tdeep - 1):
+        half = min(1 << t, n_total)
+        prev = minv[-1]
+        shifted = torch.cat([prev[half:], prev.new_full((half,), 2**30)])
+        minv.append(torch.minimum(prev, shifted))
+    return minv
+
+
+def _interval_bounds(lcp, idx, rs_all, ns_all, minv, *, n_total: int,
+                     tdeep: int, pack_w: int):
+    """(start, end) of the lcp-interval of each boundary at positions
+    ``idx`` (with ``lcp`` there): PSV/NSV from the inclusive threshold
+    scans ``rs_all``/``ns_all`` for lcp in [1, pack_w] (a boundary is
+    never "below" itself, so they are exactly psv/nsv), and a binary
+    descent over the range-min table ``minv`` of the whole lcp, bounded
+    by the level-0 group size, for deeper ones."""
     psv = torch.full_like(idx, -1)
     nsv = torch.full_like(idx, n_total)
     for v in range(1, pack_w + 1):
         sel = lcp == v
         psv = torch.where(sel, rs_all[v - 1], psv)
         nsv = torch.where(sel, ns_all[v - 1], nsv)
-
-    # deeper boundaries: binary descent bounded by the level-0 group size
     deep = lcp > pack_w
     if tdeep > 0:
-        minv = [lcp]
-        for t in range(tdeep - 1):
-            half = min(1 << t, n_total)
-            prev = minv[-1]
-            shifted = torch.cat([prev[half:], prev.new_full((half,), 2**30)])
-            minv.append(torch.minimum(prev, shifted))
         ln = torch.zeros_like(idx)
         for t in range(tdeep - 1, -1, -1):
             j = idx - ln - (1 << t)
@@ -288,17 +296,50 @@ def _collect_front(order, lcp, lengths, *, k: int, n_max: int, tdeep: int,
             rn = torch.where(grow, rn + (1 << t), rn)
         psv = torch.where(deep, idx - ln - 1, psv)
         nsv = torch.where(deep, idx + rn + 1, nsv)
+    # nsv in [i+1, N], so end in [0, N-1]
+    return psv.clamp(min=0), nsv - 1
 
-    start = psv.clamp(min=0)
-    end = nsv - 1          # nsv in [i+1, N], so end in [0, N-1]
+
+def _coverage_chans(order, lengths, idx, *, k: int, n_max: int):
+    """The all-sequences coverage scans' (k, n) int32 inputs: channel s
+    holds the positions of sequence s's real rotations, else -1."""
+    valid_s = (order % n_max) < lengths.clamp(min=1)[order // n_max]
+    sv_ch = torch.arange(k, device=order.device)[:, None]
+    return torch.where(
+        ((order // n_max)[None, :] == sv_ch) & valid_s[None, :],
+        idx.to(torch.int32)[None, :], -1)
+
+
+def _parents(lcp, start, end, n_total: int):
+    """Bound and depth of each interval's parent: the deeper of the two
+    boundaries beside it in the whole ``lcp`` (past the end counts 0)."""
+    left_d = lcp[start]
+    nxt = end + 1
+    right_d = torch.where(nxt < n_total, lcp[nxt.clamp(max=n_total - 1)], 0)
+    return (torch.where(left_d >= right_d, start, nxt),
+            torch.maximum(left_d, right_d))
+
+
+def _collect_front(order, lcp, lengths, *, k: int, n_max: int, tdeep: int,
+                   pack_w: int):
+    """PSV/NSV intervals, all-sequences coverage, canonical
+    representatives and deepest-node marking.  Returns (collected, start,
+    end) over the N sorted boundaries."""
+    n_total = order.shape[0]
+    dev = order.device
+    idx = torch.arange(n_total, device=dev)
+
+    # the threshold scans, both directions, and the k coverage scans with
+    # the min over sequences: three multi-channel scans
+    fwd, bwd = _threshold_chans(lcp, idx, n_total, pack_w)
+    start, end = _interval_bounds(
+        lcp, idx, mscan.multi_cummax(fwd),
+        mscan.multi_cummin(bwd, reverse=True), _sparse_min(lcp, tdeep),
+        n_total=n_total, tdeep=tdeep, pack_w=pack_w)
     has_node = lcp >= 1
-
-    # all-sequences coverage: L[e] = min over sequences of the last
-    # occurrence at or before e (k scans fused with the min)
-    sv_ch = torch.arange(k, device=dev)[:, None]
-    occ = torch.where((seq_sorted[None, :] == sv_ch) & valid_s[None, :],
-                      idx32[None, :], -1)
-    L = mscan.multi_cummax(occ, min_over_channels=True)
+    L = mscan.multi_cummax(_coverage_chans(order, lengths, idx, k=k,
+                                           n_max=n_max),
+                           min_over_channels=True)
     allseq = has_node & (L[end] >= start)
 
     # canonical representative per (start, end) group
@@ -316,11 +357,7 @@ def _collect_front(order, lcp, lengths, *, k: int, n_max: int, tdeep: int,
     is_canon = has_node & (canon_arr == idx)
 
     # deepest: mark parents of all-seq canonical nodes
-    lcp_ext = torch.cat([lcp, lcp.new_zeros(1)])
-    left_d = lcp_ext[start]
-    right_d = lcp_ext[(end + 1).clamp(max=n_total)]
-    parent_bound = torch.where(left_d >= right_d, start, end + 1)
-    parent_d = torch.maximum(left_d, right_d)
+    parent_bound, parent_d = _parents(lcp, start, end, n_total)
     has_parent = is_canon & allseq & (parent_d >= 1)
     pb = torch.where(has_parent, parent_bound.clamp(max=n_total - 1), 0)
     haschild = torch.zeros(n_total, dtype=torch.bool, device=dev)
@@ -406,19 +443,39 @@ def _slim(nb: int, n_suffix: int, start, depth, pos) -> RotationFinal:
 
 
 def rotation_final(encoded: Sequence[np.ndarray], device, *,
-                   pack_w: int = 12) -> Optional[RotationFinal]:
+                   pack_w: int = 12, mesh=None) -> Optional[RotationFinal]:
     """The rotation block stage: build, collect, filter.  Returns a
     :class:`RotationFinal`, or ``None`` when duplicate rotations demand
-    the exact host path (periodic inputs)."""
-    arrays, aux = _device_build(encoded, device, pack_w=pack_w)
+    the exact host path (periodic inputs).
+
+    With ``mesh`` (a :class:`csa_tpu_torch.parallel.sharded.Mesh`) whose
+    rank count is a power of two, the build and the collect front run
+    over its ranks (:mod:`csa_tpu_torch.parallel.dsort_ladder`,
+    :mod:`csa_tpu_torch.parallel.collect_sharded`) and the tail on the
+    first rank; on any other mesh the single-device stage runs on its
+    first rank.  The output is the same."""
+    sharded = mesh is not None and mesh.size & (mesh.size - 1) == 0
+    if sharded:
+        from ..parallel import collect_sharded, dsort_ladder
+
+        arrays, aux = dsort_ladder.device_build_dsort(encoded, mesh,
+                                                      pack_w=pack_w)
+    else:
+        if mesh is not None:
+            device = mesh.devices[0]
+        arrays, aux = _device_build(encoded, device, pack_w=pack_w)
     if arrays is None:
         return None
     order, lcp, lengths = arrays
     k, n_max, mg0 = aux
+    kw = dict(k=k, n_max=n_max, tdeep=_tdeep_for(mg0, k, n_max),
+              pack_w=pack_w)
     with PROFILER.phase("idx.collect_front"):
-        front = _collect_front(order, lcp, lengths, k=k, n_max=n_max,
-                               tdeep=_tdeep_for(mg0, k, n_max),
-                               pack_w=pack_w)
+        if sharded:
+            front = collect_sharded.collect_front(mesh, order, lcp, lengths,
+                                                  **kw)
+        else:
+            front = _collect_front(order, lcp, lengths, **kw)
         sync(order.device)
     with PROFILER.phase("idx.collect_tail"):
         res = _collect_tail(order, lcp, lengths, *front, k=k, n_max=n_max)

@@ -2,7 +2,8 @@
 (counterpart of :func:`csa_tpu.rotation.pipeline.analyze`).
 
 The block stage (index build, collect cascade, suffix and uniqueness
-filters) runs on ``device`` through :func:`..index.engine.rotation_final`;
+filters) runs on ``device``, or over the ranks of ``mesh``, through
+:func:`..index.engine.rotation_final`;
 the chain linking and selection are the exact host code of
 :mod:`csa_tpu_torch.rotation.chains`.
 A sequence with duplicate rotations (a periodic input) takes the exact
@@ -50,15 +51,20 @@ def analyze(
     pack_w: int = 12,
     max_interval: int = INT_MAX,
     log: Optional[TextIO] = None,
+    mesh=None,
 ) -> RotationResult:
     """Optimal rotations of a set of circular sequences.  The console
-    narrative is the JAX package's (reference csamsa.c:274-303)."""
+    narrative is the JAX package's (reference csamsa.c:274-303).  With
+    ``mesh`` (``--backend sharded``) the block stage runs over its ranks
+    and ``device`` is not used."""
     log = log if log is not None else sys.stdout
     sizes = seqs.sizes
     encoded = seqs.encoded_all()
 
-    with PROFILER.phase("rot.block_stage[torch]"):
-        fused = engine.rotation_final(encoded, device, pack_w=pack_w)
+    stage = "torch" if mesh is None else "sharded"
+    with PROFILER.phase(f"rot.block_stage[{stage}]"):
+        fused = engine.rotation_final(encoded, device, pack_w=pack_w,
+                                      mesh=mesh)
 
     index = None
     if fused is not None:

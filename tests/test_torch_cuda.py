@@ -12,7 +12,8 @@ import torch
 
 from csa_tpu_torch import kernels
 from csa_tpu_torch.dp import band, nw, profile, seqpar
-from csa_tpu_torch.index import mscan
+from csa_tpu_torch.index import engine, mscan
+from csa_tpu_torch.parallel import collect_sharded, dsort, dsort_ladder
 from csa_tpu_torch.parallel.sharded import make_mesh
 from torch_mscan_inputs import KINDS, mscan_input
 
@@ -343,3 +344,59 @@ def test_dp_path_seqpar_matches_profile_kernel(cuda, n_ranks):
     assert kernels.COUNTS["band"] == before + 6 * n_ranks + 1
     want = profile.profile_path(codes, sv, i, top, -5, device=cuda)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_ranks", [2, 4, 8])
+@pytest.mark.parametrize("keys", ["tied", "unique"])
+def test_sharded_argsort_on_one_card(cuda, n_ranks, keys):
+    """Ranks sharing the one card, a stream each: the merge-split network
+    gives the stable order, on keys with heavy ties and on unique ones."""
+    gen = torch.Generator(device=cuda).manual_seed(n_ranks)
+    n = 1 << 21
+    v = (torch.randint(0, 7, (n,), device=cuda, generator=gen)
+         if keys == "tied" else
+         torch.randperm(n, device=cuda, generator=gen) - n // 2)
+    v = v.to(torch.int32)
+    want_v, want_o = torch.sort(v, stable=True)
+    vals, order = dsort.sharded_argsort(v, make_mesh(n_ranks, devices=[cuda]))
+    torch.cuda.synchronize()
+    assert torch.equal(vals, want_v)
+    assert torch.equal(order, want_o)
+
+
+def _circular_set(k, n, seed, noise=200):
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 4, size=n, dtype=np.int64)
+    enc = []
+    for _ in range(k):
+        row = np.roll(base, int(rng.integers(0, n))).copy()
+        idx = rng.integers(0, n, size=max(1, n // noise))
+        row[idx] = rng.integers(0, 4, size=len(idx))
+        enc.append(row)
+    return enc
+
+
+@pytest.mark.cuda
+def test_ladder_and_front_on_a_four_rank_card_mesh(cuda):
+    """The sharded build and front on 4 ranks of the one card equal the
+    single-device ones, twice in a row (a buffer that the allocator
+    handed out again while a rank still read it would show as a
+    difference); each rank's front launches its three scans."""
+    enc = _circular_set(8, 200_000, seed=5)
+    (wo, wl, wn), waux = engine._device_build(enc, cuda)
+    k, n_max, mg0 = waux
+    kw = dict(k=k, n_max=n_max, tdeep=engine._tdeep_for(mg0, k, n_max),
+              pack_w=12)
+    want = engine._collect_front(wo, wl, wn, **kw)
+    mesh = make_mesh(4, devices=[cuda])
+    for _ in range(2):
+        (o, lcp, n_of), aux = dsort_ladder.device_build_dsort(enc, mesh)
+        before = kernels.COUNTS["mscan"]
+        got = collect_sharded.collect_front(mesh, o, lcp, n_of, **kw)
+        assert kernels.COUNTS["mscan"] == before + 3 * 4
+        torch.cuda.synchronize()
+        assert aux == waux
+        assert torch.equal(o, wo) and torch.equal(lcp, wl)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
