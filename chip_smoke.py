@@ -79,8 +79,21 @@ Phases, one JSON line each on stdout:
                 argsort, the sharded alignment, Set3's giant at 8 ranks);
                 and Primates at --mesh 3x1 (the single-device stage on the
                 mesh's first rank), twice, against the fixture.
+ 13. distributed: the multi-process launch.  The dryrun (2 processes x
+                4 ranks on the card, over gloo: the ladder, the final
+                blocks and the rank-split gap DP against one process);
+                the CLI in mode N on Primates and Set3 at --mesh 8x1 as
+                2 processes sharing the card (gloo) and as one process,
+                each process in a directory of its own: every process's
+                output against the fixtures, its launches of mscan,
+                profile_dp and band (zeroed just before its cli.main,
+                read just after) and its wall.  With 2 or more cards the
+                same over NCCL, a card a process (2 and, with 4 cards, 4
+                processes); on one card a line says that leg was not run.
+                The one-card legs run on card 0 on any machine.
 Then the card's name and power limit, one short summary line a kernel
-shape and one of the sharded rotation's walls (its time beside its bound, so that the end of the output keeps
+shape, one of the sharded rotation's walls and one of the distributed
+phase (its time beside its bound, so that the end of the output keeps
 every row), a JSON line with one entry per kernel (its time, the plain
 version's, the bound, the library call's), and the last line
 {"ok": true, "device": {...}}.  Any failed phase
@@ -1140,6 +1153,148 @@ def summary_sharded_rotation(out) -> None:
           f" s; exchange MB {mb}", flush=True)
 
 
+# one process of the port's CLI: its kernels' launch counts zeroed just
+# before cli.main and read just after, and the wall of cli.main
+CLI_CHILD = """
+import json, sys, time
+from csa_tpu_torch import cli, kernels
+kernels.reset_counts()
+t0 = time.perf_counter()
+rc = cli.main(sys.argv[1:])
+wall = time.perf_counter() - t0
+print("CSA_CHILD " + json.dumps({"launches": dict(kernels.COUNTS),
+                                 "wall_s": wall}), flush=True)
+sys.exit(rc)
+"""
+
+
+def run_cli_processes(distributed, tools_files, name, n, backend=None,
+                      visible=None):
+    """The port's CLI, mode N on ``name`` at --backend sharded --mesh 8x1,
+    as ``n`` processes of one world (``n`` = 1: one process alone), each
+    in a directory of its own with ``CUDA_VISIBLE_DEVICES`` from
+    ``visible``.  Checks every process's output against the fixtures and
+    its world's backend; returns (per process: launches and cli.main
+    wall, the group's wall with the interpreters' start-up)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        port = distributed.free_port()
+        argvs, cwds, envs = [], [], []
+        for pid in range(n):
+            d = Path(tmp) / f"p{pid}"
+            d.mkdir()
+            copy_fixture(d, name)
+            argv = [sys.executable, "-c", CLI_CHILD, f"{name}.txt",
+                    "--backend", "sharded", "--mesh", "8x1"]
+            if n > 1:
+                argv += ["--coordinator", f"127.0.0.1:{port}",
+                         "--num-processes", str(n), "--process-id", str(pid)]
+            env = {**os.environ, "PYTHONPATH": str(ROOT)}
+            if visible is not None:
+                env["CUDA_VISIBLE_DEVICES"] = visible[pid]
+            argvs.append(argv)
+            cwds.append(d)
+            envs.append(env)
+        t0 = time.perf_counter()
+        outs = distributed.run_processes(argvs, timeout=600, cwds=cwds,
+                                         envs=envs)
+        group_wall = time.perf_counter() - t0
+        procs = []
+        for pid, (d, (rc, out, err)) in enumerate(zip(cwds, outs)):
+            what = f"distributed: {name}, process {pid} of {n}"
+            check(rc == 0, f"{what} exited {rc}: {err[-2000:]}")
+            rot = d / f"{name}-Rotated.fasta"
+            aln = d / f"{name}-Aligned.fasta"
+            check(rot.read_bytes() == (FIX / f"{name}-Rotated.fasta")
+                  .read_bytes(), f"{what}: -Rotated.fasta differs")
+            check(_content_rows(aln) == _content_rows(
+                FIX / f"{name}-Rotated-Aligned.fasta"),
+                f"{what}: aligned rows differ from the fixture")
+            check(tools_files.test_alignment_output(
+                str(rot), str(aln), log=io.StringIO()),
+                f"{what}: integrity check failed")
+            if n > 1:
+                check(f"process {pid}/{n}, 8 global ranks, backend "
+                      f"{backend}" in out, f"{what}: not a {backend} world")
+            procs.append(json.loads(next(
+                l for l in out.splitlines()
+                if l.startswith("CSA_CHILD "))[len("CSA_CHILD "):]))
+    return procs, group_wall
+
+
+def _cli_leg(distributed, tools_files, n, backend, visible=None):
+    """Primates and Set3 as ``n`` processes; every process launches
+    mscan and profile_dp, and band on Set3."""
+    out = {}
+    for name in ("Primates", "Set3"):
+        procs, wall = run_cli_processes(distributed, tools_files, name, n,
+                                        backend, visible)
+        for pid, p in enumerate(procs):
+            need = ("mscan", "profile_dp") + (("band",) if name == "Set3"
+                                              else ())
+            check(all(p["launches"][k] > 0 for k in need),
+                  f"distributed: {name}, process {pid} of {n} ({backend}) "
+                  f"did not launch {need}: {p['launches']}")
+        out[name] = {"group_wall_s": wall,
+                     "cli_wall_s": [p["wall_s"] for p in procs],
+                     "launches": [p["launches"] for p in procs]}
+    return out
+
+
+def _dryrun(distributed, n, per, backend, visible=None):
+    res = distributed.run_multiprocess_dryrun(n, per, "cuda", timeout=600,
+                                              visible=visible)
+    check(res.get("ok") is True and res.get("backend") == backend,
+          f"distributed: the dryrun of {n} x {per} ranks over {backend} "
+          f"failed: {res}")
+    res.pop("blocks")
+    return res
+
+
+def phase_distributed(distributed, tools_files):
+    import torch
+
+    # the one-card legs on card 0 whatever the machine holds
+    out = {"dryrun": {"gloo_2x4": _dryrun(distributed, 2, 4, "gloo",
+                                          ["0", "0"])},
+           "single": _cli_leg(distributed, tools_files, 1, None, ["0"]),
+           "gloo_2": _cli_leg(distributed, tools_files, 2, "gloo",
+                              ["0", "0"])}
+    cards = torch.cuda.device_count()
+    for n in (2, 4):
+        if n > cards:
+            continue
+        visible = [str(k) for k in range(n)]
+        out["dryrun"][f"nccl_{n}x{8 // n}"] = _dryrun(
+            distributed, n, 8 // n, "nccl", visible)
+        out[f"nccl_{n}"] = _cli_leg(distributed, tools_files, n, "nccl",
+                                    visible)
+    if cards < 2:
+        print("distributed: the NCCL leg was not run: one card is visible, "
+              "and NCCL needs a card of its own for each process",
+              flush=True)
+    emit({"phase": "distributed", "cards": cards, "mesh": "8x1",
+          "rotated_identical": True, "aligned_rows_identical": True,
+          **out})
+    return out
+
+
+def summary_distributed(out) -> None:
+    dr = out["dryrun"]
+    legs = [k for k in out if k not in ("dryrun", "single")]
+    walls = "; ".join(
+        f"{name} single {out['single'][name]['cli_wall_s'][0]:.3f} s, "
+        + ", ".join(f"{leg} " + "/".join(f"{w:.3f}" for w in
+                                         out[leg][name]["cli_wall_s"])
+                    + " s" for leg in legs)
+        for name in ("Primates", "Set3"))
+    print(f"summary distributed 8x1: dryrun "
+          + ", ".join(f"{k} ok, {v['rank_process_bytes'] / 1e6:.1f} MB "
+                      f"across processes" for k, v in dr.items())
+          + f"; cli.main walls {walls}"
+          + ("" if any(k.startswith("nccl") for k in out)
+             else "; NCCL not run (one card)"), flush=True)
+
+
 def summary(stats, launches) -> None:
     """One short line a kernel shape: ms, bound ms and share, plain and
     library ms, launches on its path."""
@@ -1171,7 +1326,7 @@ def main() -> int:
     from csa_tpu_torch.dp import band, nw, profile, seqpar
     from csa_tpu_torch.index import mscan
     from csa_tpu_torch.io import fasta as fio
-    from csa_tpu_torch.parallel import scaling
+    from csa_tpu_torch.parallel import distributed, scaling
     from csa_tpu_torch.rotation import pipeline as rot
     from csa_tpu_torch.rotation import verification
     from csa_tpu_torch.tools import files as tools_files
@@ -1191,6 +1346,7 @@ def main() -> int:
                                       profile, walls)["band"]
     sharded_rot = phase_sharded_rotation(cli, rot, kernels, fio, scaling,
                                          mbp_native, mbp_single_s)
+    dist_out = phase_distributed(distributed, tools_files)
     check("jax" not in sys.modules, "jax was imported")
     check("csa_tpu" not in sys.modules, "the JAX package was imported")
 
@@ -1206,6 +1362,7 @@ def main() -> int:
     print(smi_line())
     summary(stats, launches)
     summary_sharded_rotation(sharded_rot)
+    summary_distributed(dist_out)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **stats[name]}

@@ -629,7 +629,7 @@ BATCH_DIRS_BYTES = 8 << 30
 # peels off the giants that go to the column-sharded seqpar path
 BATCH_DIRS_CAP = 1 << 30
 # with a mesh, a round's batch smaller than this runs merge by merge on
-# rank 0's device (csa_tpu/align/progressive.py:752, :824)
+# the home rank's device (csa_tpu/align/progressive.py:752, :824)
 MESH_MIN_BATCH = 2
 
 
@@ -695,7 +695,9 @@ def _partition_mesh(dev: list):
 
 
 def _giant_to_maps(p, mesh, sc: dict):
-    """One giant merge, column-sharded over the mesh's ranks."""
+    """One giant merge, column-sharded over the ranks that this process
+    drives of the mesh (every process runs it and finds the same
+    path)."""
     PROFILER.add("dp_cells", len(p[0]) * len(p[1]))
     PROFILER.add("dp_device_dispatches", 1)
     with PROFILER.phase("align.dp_fill"):
@@ -718,12 +720,17 @@ def progressive_dp_batched(gaps: List[List[np.ndarray]], *, device,
     JAX package splits it: giants go column-sharded to
     :func:`..dp.seqpar.dp_path_seqpar`, a batch of MESH_MIN_BATCH or more
     is split over the ranks (:func:`..dp.profile.profile_paths_sharded`),
-    and a smaller one runs merge by merge on rank 0's device."""
+    and a smaller one runs merge by merge on the home rank's device.  On
+    a mesh across processes every process runs every round: each giant
+    over its own ranks, each batch split over the ranks of every process
+    and gathered whole to every process, the rest on its own first
+    rank, so the host states stay equal and every process issues the
+    same exchanges."""
     sc = dict(match=match, mismatch=mismatch, indel=indel,
               doublegap=doublegap)
     _check_scoring(sc)
     if mesh is not None:
-        device = mesh.devices[0]
+        device = mesh.home
     states = [GapProgressiveState(g) for g in gaps]
     while True:
         preps = []
@@ -770,6 +777,6 @@ def _batch_paths(batch, device, mesh, sc: dict):
         else:
             paths = profile.profile_paths_sharded(items, relabel(mesh, "gap"),
                                                   **sc)
-            for d in set(mesh.devices):
-                sync(d)
+            for r in mesh.local:
+                sync(mesh.devices[r])
     return paths

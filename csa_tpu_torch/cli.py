@@ -23,6 +23,13 @@ SEQxPOS`` ranks (default: one per visible card) laid out on
 than cards.  Rotation takes the sharded index build and collect front
 on a power-of-two rank count, and the single-device stage on the mesh's
 first rank on any other; the output is the same.
+``--coordinator HOST:PORT``, ``--num-processes N`` and ``--process-id
+p`` (or the ``CSA_TPU_*`` variables ``csa_tpu`` reads) run modes N, R
+and A as one of N processes (:mod:`csa_tpu_torch.parallel.distributed`):
+the mesh of ``--backend sharded`` then spans the ranks of every
+process, each process runs the whole CLI on its own copy of the input
+and writes its own output next to it, and every process's output is
+the single-process run's.
 ``--verify-rotations`` (modes N and R) scores each chosen rotation
 against sampled alternatives with the pairwise NW kernel on
 ``--device`` (:mod:`csa_tpu_torch.rotation.verification`).
@@ -32,6 +39,8 @@ writes ``<dir>/trace.json``.
     python -m csa_tpu_torch.cli Primates.txt
     python -m csa_tpu_torch.cli R Primates.txt --device cuda --verify-rotations
     python -m csa_tpu_torch.cli Set3.txt --backend sharded --mesh 8x1
+    python -m csa_tpu_torch.cli Set3.txt --backend sharded --mesh 8x1 \
+        --coordinator host0:8476 --num-processes 2 --process-id 0
 """
 
 from __future__ import annotations
@@ -150,7 +159,10 @@ def _mesh(args):
     from .parallel.sharded import make_mesh
 
     devices = [args.device] if args.device.type == "cpu" else None
-    return make_mesh(shape=args.kw["mesh_shape"], devices=devices)
+    try:
+        return make_mesh(shape=args.kw["mesh_shape"], devices=devices)
+    except ValueError as e:
+        raise SystemExit(f"> ERROR: {e}")
 
 
 def run_alignment(args, seqs: fio.SequenceSet, rotations) -> str:
@@ -204,6 +216,15 @@ def main(argv=None) -> int:
                         choices=range(2, 14),
                         help="k-mer packing width of the index engine "
                              "(2..13, default 12)")
+    parser.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                        help="multi-process launch: the coordinator's "
+                             "address (the same on every process)")
+    parser.add_argument("--num-processes", type=int, default=None,
+                        metavar="N", help="multi-process launch: process "
+                                          "count")
+    parser.add_argument("--process-id", type=int, default=None,
+                        metavar="I", help="multi-process launch: this "
+                                          "process's 0-based index")
     parser.add_argument("--profile", action="store_true")
     parser.add_argument("--verify-rotations", action="store_true",
                         help="score chosen vs alternative rotations with "
@@ -231,7 +252,7 @@ def main(argv=None) -> int:
 
     print(banner("[ csa-tpu-torch: Multiple Circular Sequence Aligner ]"))
 
-    from .utils import PROFILER, torch_trace
+    from .utils import PROFILER
 
     PROFILER.enabled = bool(args.profile)
 
@@ -247,9 +268,30 @@ def main(argv=None) -> int:
     if not args.input or not mode:
         parser.print_help()
         return 0
+    from .parallel import distributed
+
+    try:
+        return _run(args, mode)
+    finally:
+        distributed.shutdown()
+
+
+def _run(args, mode: str) -> int:
+    from .parallel import distributed
+    from .utils import PROFILER, torch_trace
+
     if mode in ("N", "R", "A"):
         args.device = _resolve_device(args.device)
+        # the world first: the mesh spans it
+        multi = distributed.initialize(args.coordinator, args.num_processes,
+                                       args.process_id, device=args.device)
         args.rank_mesh = _mesh(args)
+        if multi:
+            world = distributed.current()
+            ranks = (args.rank_mesh.size if args.rank_mesh is not None
+                     else world.size)
+            print(f"> Multi-host runtime: process {world.rank}/{world.size}"
+                  f", {ranks} global ranks, backend {world.backend}")
 
     with torch_trace(os.environ.get("CSA_TPU_TORCH_TRACE")):
         if mode in ("N", "R", "A"):

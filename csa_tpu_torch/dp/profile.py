@@ -38,7 +38,8 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..parallel.sharded import join_streams, on_rank, rank_streams
+from ..parallel.sharded import (Ranks, join_streams, on_rank, rank_streams,
+                                unzip)
 
 D_DIAG, D_LEFT, D_UP = 0, 1, 2
 GAP = 4
@@ -302,10 +303,14 @@ def profile_paths_sharded(items: Sequence[tuple], mesh, *, match: int = 1,
     """:func:`profile_paths` with the batch split over the ranks of
     ``mesh`` (:func:`rank_chunks`): one launch per rank with items, on the
     rank's device and stream, so the ranks of one card overlap; results
-    in item order."""
+    in item order.  On a mesh across processes each process fills its
+    own ranks' chunks, and every process returns every path
+    (:func:`_gather_paths`)."""
     sc = dict(match=match, mismatch=mismatch, indel=indel,
               doublegap=doublegap)
     chunks = rank_chunks(len(items), mesh.size)
+    if mesh.world is not None:
+        return _gather_paths(items, mesh, chunks, sc)
     streams = rank_streams(mesh)
     launched = []
     for dev, stream, chunk in zip(mesh.devices, streams, chunks):
@@ -320,6 +325,55 @@ def profile_paths_sharded(items: Sequence[tuple], mesh, *, match: int = 1,
     join_streams(streams)  # the device results are ready from here on
     return [p for res in launched
             for p in (res if isinstance(res, list) else _collect(*res))]
+
+
+def _gather_paths(items, mesh, chunks, sc: dict) -> List[np.ndarray]:
+    """Every rank's paths on every process, in item order (the
+    counterpart of ``csa_tpu.dp.wavefront._fetch_global``): each rank
+    pads its chunk's paths to the longest path of the batch, found by a
+    ``pmax`` over the ranks, and to the largest chunk; one gather of the
+    paths and one of their step counts bring the whole batch to every
+    process's home rank."""
+    ranks = Ranks(mesh)
+    per = max(c.stop - c.start for c in chunks)
+
+    def fill(r, chunk):
+        part = items[chunk]
+        dev = mesh.devices[r]
+        if dev.type != "cuda":  # the plain version, or it raises
+            got = profile_paths(part, dev, **sc) if part else []
+            n = torch.tensor([len(p) for p in got], dtype=torch.int32)
+            paths = torch.zeros((len(got), int(n.max()) if got else 1),
+                                dtype=torch.int8)
+            for g, p in enumerate(got):
+                paths[g, :len(p)] = torch.from_numpy(p)
+            return paths, n
+        if not part:
+            return (torch.zeros((0, 1), dtype=torch.int8, device=dev),
+                    torch.zeros(0, dtype=torch.int32, device=dev))
+        return _launch_paths(part, dev, **sc)
+
+    paths, nsteps = unzip(ranks.each(fill, chunks), 2)
+    longest = max(1, ranks.item(ranks.pmax(ranks.each(
+        lambda r, n: n.max() if len(n) else n.new_zeros(()), nsteps))))
+
+    def pad(r, p, n):
+        out_p = p.new_zeros((per, longest))
+        out_n = n.new_zeros(per)
+        w = min(longest, p.shape[1])
+        out_p[:p.shape[0], :w] = p[:, :w]
+        out_n[:n.shape[0]] = n
+        return out_p, out_n
+
+    padded, steps = unzip(ranks.each(pad, paths, nsteps), 2)
+    padded = ranks.gather_to_first(padded)
+    steps = ranks.gather_to_first(steps)
+    ranks.finish(padded, steps)
+    padded = padded.cpu().numpy()
+    steps = steps.cpu().numpy()
+    return [padded[d * per + g - c.start, :int(steps[d * per + g - c.start])]
+            .copy() for d, c in enumerate(chunks)
+            for g in range(c.start, c.stop)]
 
 
 def profile_paths_plain(items: Sequence[tuple], device, *, match: int = 1,

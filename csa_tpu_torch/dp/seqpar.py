@@ -25,6 +25,12 @@ all-gather; on one card nothing moves), where one walk
 (:func:`csa_tpu_torch.dp.band.band_walk`) returns the O(R + C) path
 codes.  With one rank, :func:`dp_path_seqpar` takes the full-matrix
 profile kernel instead, as ``csa_tpu/dp/seqpar.py:266-274`` does.
+
+On a mesh that spans processes, a giant runs over the ranks of this
+process alone (:func:`..parallel.sharded.local_mesh`), and every
+process fills and walks it: ``csa_tpu/dp/seqpar.py`` places no data
+across processes, so no halo crosses a process, and every process ends
+with the same path, which its host merge needs.
 Integer max/plus with the same boundary operands gives the same
 directions as the single-device fill, bit for bit.
 """
@@ -36,8 +42,8 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ..parallel.sharded import (Mesh, join_streams, on_rank, rank_streams,
-                                relabel)
+from ..parallel.sharded import (Mesh, join_streams, local_mesh, on_rank,
+                                rank_streams)
 from . import band, profile
 from .profile import D_DIAG, D_LEFT, D_UP
 
@@ -156,10 +162,11 @@ def dp_path_seqpar(row_codes, scorevector, i: int, mesh: Mesh, *,
                    band_rows=None, top_row=None, edge_rowgap=None,
                    match: int = 1, mismatch: int = -1, indel: int = -1,
                    doublegap: int = 0) -> np.ndarray:
-    """Column-sharded fill + walk of ONE giant merge over ``mesh``;
-    returns the walk-order path codes, the same as every other route.
+    """Column-sharded fill + walk of ONE giant merge over ``mesh`` (the
+    ranks this process drives of it); returns the walk-order path codes,
+    the same as every other route.
     ``band_rows`` defaults to :data:`BAND_ROWS`."""
-    mesh = relabel(mesh, "col")
+    mesh = local_mesh(mesh, "col")
     sc = dict(match=match, mismatch=mismatch, indel=indel,
               doublegap=doublegap)
     top_row, edge_rowgap = _boundaries(scorevector, i, top_row, edge_rowgap,
@@ -183,7 +190,7 @@ def dp_fill_seqpar(row_codes, scorevector, i: int, mesh: Mesh, *,
                    doublegap: int = 0) -> np.ndarray:
     """The column-sharded fill's full (R + 1, C + 1) int8 direction
     matrix, boundaries included (``csa_tpu/dp/seqpar.py:dp_fill_seqpar``)."""
-    mesh = relabel(mesh, "col")
+    mesh = local_mesh(mesh, "col")
     top_row, edge_rowgap = _boundaries(scorevector, i, top_row, edge_rowgap,
                                        indel, doublegap)
     R, C = len(row_codes), len(scorevector)

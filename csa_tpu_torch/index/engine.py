@@ -453,7 +453,9 @@ def rotation_final(encoded: Sequence[np.ndarray], device, *,
     over its ranks (:mod:`csa_tpu_torch.parallel.dsort_ladder`,
     :mod:`csa_tpu_torch.parallel.collect_sharded`) and the tail on the
     first rank; on any other mesh the single-device stage runs on its
-    first rank.  The output is the same."""
+    first rank.  On a mesh across processes "the first rank" is every
+    process's own first rank: each runs the tail (or the whole
+    single-device stage) on the same data.  The output is the same."""
     sharded = mesh is not None and mesh.size & (mesh.size - 1) == 0
     if sharded:
         from ..parallel import collect_sharded, dsort_ladder
@@ -462,7 +464,7 @@ def rotation_final(encoded: Sequence[np.ndarray], device, *,
                                                       pack_w=pack_w)
     else:
         if mesh is not None:
-            device = mesh.devices[0]
+            device = mesh.home
         arrays, aux = _device_build(encoded, device, pack_w=pack_w)
     if arrays is None:
         return None

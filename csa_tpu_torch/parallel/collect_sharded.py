@@ -32,7 +32,7 @@ import torch
 
 from ..index import engine, mscan
 from . import dsort
-from .sharded import Mesh, Ranks, relabel
+from .sharded import Mesh, Ranks, relabel, unzip
 
 
 def _gcummax(ranks: Ranks, chans: list, *, reduce: bool = False) -> list:
@@ -84,8 +84,9 @@ def _marked(dest, N: int):
 def collect_front(mesh: Mesh, order, lcp, lengths, *, k: int, n_max: int,
                   tdeep: int, pack_w: int):
     """``engine._collect_front`` over the ranks of ``mesh`` (a power-of-two
-    count dividing N): ``order``, ``lcp`` and ``lengths`` on the first
-    rank's device in, (collected, start, end) there out."""
+    count dividing N): ``order``, ``lcp`` and ``lengths`` on the home
+    rank's device in (the whole of them on every process), (collected,
+    start, end) there out."""
     ranks = Ranks(relabel(mesh, "x"))
     D = ranks.size
     N = order.shape[0]
@@ -96,18 +97,18 @@ def collect_front(mesh: Mesh, order, lcp, lengths, *, k: int, n_max: int,
     gidx = ranks.each(lambda r, o: torch.arange(r * S, (r + 1) * S,
                                                 device=o.device), order_l)
 
-    fwd, bwd = zip(*ranks.each(
+    fwd, bwd = unzip(ranks.each(
         lambda r, lc, g: engine._threshold_chans(lc, g, N, pack_w),
-        lcp_l, gidx))
-    rs = _gcummax(ranks, list(fwd))
-    ns = _gcummin_rev(ranks, list(bwd))
+        lcp_l, gidx), 2)
+    rs = _gcummax(ranks, fwd)
+    ns = _gcummin_rev(ranks, bwd)
     lcp_full = ranks.all_gather(lcp_l)
     minv = ranks.per_device(
         lambda r, lf: tuple(engine._sparse_min(lf, tdeep)), lcp_full)
-    start, end = zip(*ranks.each(
+    start, end = unzip(ranks.each(
         lambda r, lc, g, a, b, mv: engine._interval_bounds(
             lc, g, a, b, mv, n_total=N, tdeep=tdeep, pack_w=pack_w),
-        lcp_l, gidx, rs, ns, minv))
+        lcp_l, gidx, rs, ns, minv), 2)
     cover = _gcummax(ranks, ranks.each(
         lambda r, o, ln, g: engine._coverage_chans(o, ln, g, k=k,
                                                    n_max=n_max),
@@ -134,10 +135,10 @@ def collect_front(mesh: Mesh, order, lcp, lengths, *, k: int, n_max: int,
         pc = cf[torch.where(has_parent, parent_bound.clamp(max=N - 1), 0)]
         return cand, torch.where(has_parent, pc, N)
 
-    cand, dest = zip(*ranks.each(marks, lcp_l, start, end, canon, cover_full,
-                                 lcp_full))
+    cand, dest = unzip(ranks.each(marks, lcp_l, start, end, canon,
+                                  cover_full, lcp_full), 2)
     haschild = ranks.per_device(lambda r, d: _marked(d, N),
-                                ranks.all_gather(list(dest)))
+                                ranks.all_gather(dest))
     collected = ranks.each(lambda r, c, h: c & ~h[r * S:(r + 1) * S],
                            cand, haschild)
     out = tuple(ranks.gather_to_first(x) for x in (collected, start, end))

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from .sharded import Mesh, Ranks, relabel
+from .sharded import Mesh, Ranks, relabel, unzip
 
 
 def _merge_split_net(num_dev: int):
@@ -91,14 +91,15 @@ def _network(ranks: Ranks, blocks: list, merge) -> list:
     """Run the merge-split stages over one sorted block a rank (a tuple
     of tensors); ``merge(mine, theirs, keep_low, a_first)`` is a stage's
     pairwise merge."""
+    width = len(blocks[ranks.home])
     for bit, keep_low in _merge_split_net(ranks.size):
         pairs = [(s, s ^ bit) for s in range(ranks.size)]
-        theirs = list(zip(*(ranks.ppermute(list(part), pairs)
-                            for part in zip(*blocks))))
+        theirs = [ranks.ppermute(part, pairs)
+                  for part in unzip(blocks, width)]
         blocks = ranks.each(
-            lambda r, mine, other: merge(mine, other, keep_low[r],
-                                         (r & bit) == 0),
-            blocks, theirs)
+            lambda r, mine, *other: merge(mine, other, keep_low[r],
+                                          (r & bit) == 0),
+            blocks, *theirs)
     return blocks
 
 
@@ -118,21 +119,21 @@ def net_sort_pairs(ranks: Ranks, keys: list, payloads: list):
         ranks, blocks,
         lambda m, t, lo, af: _merge_halves_pair(m[0], m[1], t[0], t[1], lo,
                                                 af))
-    us, ps = zip(*blocks)
-    return list(us), list(ps)
+    return unzip(blocks, 2)
 
 
 def sharded_argsort(values, mesh: Mesh):
     """Distributed stable argsort of a 1-D int32 array or tensor whose
     length the mesh's rank count divides: ``(sorted values, order)`` on
-    the first rank's device, equal to ``torch.sort(values, stable=True)``.
+    the home rank's device (every process's first), equal to
+    ``torch.sort(values, stable=True)``.
 
     Each value is packed with its index into one unique int64 key,
     ``v << 32 | g``, so int64 order is (value, index) order over the
     whole signed int32 range, and the keys sort alone."""
     D = mesh.size
     _merge_split_net(D)
-    v = torch.as_tensor(values).to(mesh.devices[0], torch.int64)
+    v = torch.as_tensor(values).to(mesh.home, torch.int64)
     n = v.shape[0]
     if n % D:
         raise ValueError(f"sharded_argsort: {D} ranks do not divide {n}")
@@ -142,8 +143,8 @@ def sharded_argsort(values, mesh: Mesh):
                         ranks.scatter(u))
     shards = _network(ranks, shards,
                       lambda m, t, lo, af: (_merge_halves(m[0], t[0], lo),))
-    su = ranks.gather_to_first([s[0] for s in shards])
-    with ranks.on(0):
+    su = ranks.gather_to_first(unzip(shards, 1)[0])
+    with ranks.on(ranks.home):
         vals = (su >> 32).to(torch.int32)
         order = su & 0xFFFFFFFF
     ranks.finish(vals, order)

@@ -35,7 +35,7 @@ import torch
 from ..index import engine
 from ..utils import PROFILER, sync
 from . import dsort
-from .sharded import Mesh, Ranks, relabel
+from .sharded import Mesh, Ranks, relabel, unzip
 
 
 def _sync(ranks: Ranks) -> None:
@@ -49,9 +49,10 @@ def _stats_and_rank(ranks: Ranks, su: list, sg: list, *, S: int, N: int):
     rank rebuild, as the single-device ``engine._group_stats``:
     ``(rank, num_tied, max_group)`` with ``rank`` the whole (N,)
     group-start rank array a card (shared by its ranks), ``num_tied`` a
-    host int and ``max_group`` a scalar on the first rank."""
+    host int (the same on every process) and ``max_group`` a scalar a
+    rank."""
     D = ranks.size
-    left = ranks.ppermute([u[-1:] for u in su],
+    left = ranks.ppermute(ranks.each(lambda r, u: u[-1:], su),
                           [(i, i + 1) for i in range(D - 1)])
 
     def local(r, u, lft):
@@ -63,8 +64,8 @@ def _stats_and_rank(ranks: Ranks, su: list, sg: list, *, S: int, N: int):
         a = torch.where(newgrp, gidx, N)
         return x, a, torch.stack([x.max(), a.min()])[None]
 
-    x, a, ends = zip(*ranks.each(local, su, left))
-    ends = ranks.all_gather(list(ends))          # (D, 2) a card
+    x, a, ends = unzip(ranks.each(local, su, left), 3)
+    ends = ranks.all_gather(ends)                # (D, 2) a card
 
     def scan(r, x, a, e):
         # the carries: the last group start before this rank and the
@@ -79,8 +80,8 @@ def _stats_and_rank(ranks: Ranks, su: list, sg: list, *, S: int, N: int):
         size = nxt - start
         return start, (size > 1).sum(), size.max()
 
-    start, tied, big = zip(*ranks.each(scan, x, a, ends))
-    num_tied = ranks.item(ranks.psum(tied)[0])
+    start, tied, big = unzip(ranks.each(scan, x, a, ends), 3)
+    num_tied = ranks.item(ranks.psum(tied))
 
     def scatter(r, g, st):
         rank = torch.empty_like(st)
@@ -88,8 +89,8 @@ def _stats_and_rank(ranks: Ranks, su: list, sg: list, *, S: int, N: int):
         return rank
 
     rank = ranks.per_device(scatter, ranks.all_gather(sg),
-                            ranks.all_gather(list(start)))
-    return rank, num_tied, ranks.pmax(big)[0]
+                            ranks.all_gather(start))
+    return rank, num_tied, ranks.pmax(big)
 
 
 def device_build_dsort(encoded: Sequence[np.ndarray], mesh: Mesh, *,
@@ -97,9 +98,12 @@ def device_build_dsort(encoded: Sequence[np.ndarray], mesh: Mesh, *,
     """The index build over the ranks of ``mesh`` (a power-of-two count):
     the return contract of ``engine._device_build``,
     ``((order, lcp, lengths), (k, n_max, max_group0))`` with the tensors
-    on the first rank's device, or ``(None, None)`` when a sequence has
-    duplicate rotations.  ``n_max`` is rounded up to a multiple of the
-    rank count."""
+    on the home rank's device (every process's first), or ``(None,
+    None)`` when a sequence has duplicate rotations.  ``n_max`` is
+    rounded up to a multiple of the rank count.  Every host value that
+    steers the build (the tied count, the largest group, the duplicate
+    check) is the same on every process, so each takes the same
+    branches and issues the same exchanges."""
     fmesh = relabel(mesh, "x")
     D = fmesh.size
     dsort._merge_split_net(D)      # a power of two, or it raises
@@ -115,7 +119,7 @@ def device_build_dsort(encoded: Sequence[np.ndarray], mesh: Mesh, *,
     with PROFILER.phase("idx.pack"):
         # once a card, on the caller's stream, which the ranks' wait on
         packed, lengths = {}, {}
-        for dev in dict.fromkeys(fmesh.devices):
+        for dev in dict.fromkeys(fmesh.devices[r] for r in fmesh.local):
             lengths[dev] = torch.from_numpy(sizes).to(dev)
             packed[dev] = engine._pack_keys(
                 torch.from_numpy(codes).to(dev).to(torch.int64),
@@ -123,6 +127,7 @@ def device_build_dsort(encoded: Sequence[np.ndarray], mesh: Mesh, *,
             sync(dev)
     ranks = Ranks(fmesh)
     dev_of = fmesh.devices
+    dev0 = fmesh.home
     gidx = ranks.each(lambda r, d: torch.arange(r * S, (r + 1) * S,
                                                 device=d), dev_of)
 
@@ -159,11 +164,12 @@ def device_build_dsort(encoded: Sequence[np.ndarray], mesh: Mesh, *,
             levels.append(rank)
             t += 1
         _sync(ranks)
-    dev0 = dev_of[0]
     if nt > 0:
+        # the whole order and rank on every process, so every process
+        # finds the same answer
         order = ranks.gather_to_first(sg)
-        with ranks.on(0):
-            dup = engine._dup_check(order, rank[0], lengths[dev0],
+        with ranks.on(ranks.home):
+            dup = engine._dup_check(order, rank[ranks.home], lengths[dev0],
                                     n_max=n_max)
         if dup:
             ranks.finish()
@@ -172,7 +178,7 @@ def device_build_dsort(encoded: Sequence[np.ndarray], mesh: Mesh, *,
     with PROFILER.phase("idx.lcp"):
         # adjacent sorted pairs (a, b); the last rank's last one is a
         # dummy, which the shift below drops
-        right = ranks.ppermute([o[:1] for o in sg],
+        right = ranks.ppermute(ranks.each(lambda r, o: o[:1], sg),
                                [(i + 1, i) for i in range(D - 1)])
 
         def prep(r, a, rf, d):
@@ -192,7 +198,7 @@ def device_build_dsort(encoded: Sequence[np.ndarray], mesh: Mesh, *,
             lambda r, o, p, d: engine._pair_lcp(
                 o, packed[d], *p, n_max=n_max, pack_w=pack_w)[1],
             off, pairs, dev_of)
-        left = ranks.ppermute([lp[-1:] for lp in lcp_pair],
+        left = ranks.ppermute(ranks.each(lambda r, lp: lp[-1:], lcp_pair),
                               [(i, i + 1) for i in range(D - 1)])
         lcp = ranks.each(
             lambda r, lp, lft: torch.cat(

@@ -13,7 +13,8 @@ import torch
 from csa_tpu_torch import kernels
 from csa_tpu_torch.dp import band, nw, profile, seqpar
 from csa_tpu_torch.index import engine, mscan
-from csa_tpu_torch.parallel import collect_sharded, dsort, dsort_ladder
+from csa_tpu_torch.parallel import (collect_sharded, distributed, dsort,
+                                    dsort_ladder)
 from csa_tpu_torch.parallel.sharded import make_mesh
 from torch_mscan_inputs import KINDS, mscan_input
 
@@ -400,3 +401,26 @@ def test_ladder_and_front_on_a_four_rank_card_mesh(cuda):
         assert torch.equal(o, wo) and torch.equal(lcp, wl)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_multiprocess_dryrun_on_one_card_over_gloo(cuda):
+    """2 processes x 2 ranks sharing the one card: the world takes gloo
+    (NCCL refuses two processes on one device), and the ladder, the
+    final blocks and the rank-split gap DP (the kernels, each process on
+    its own ranks) equal one process's."""
+    res = distributed.run_multiprocess_dryrun(2, 2, "cuda", timeout=600)
+    assert res.get("ok"), res
+    assert res["backend"] == "gloo" and res["device"].startswith("cuda")
+    assert res["rank_process_bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_multiprocess_dryrun_over_nccl_a_card_a_process(cuda):
+    """2 processes, each seeing a card of its own: the world takes NCCL."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards: NCCL takes a card of its own a process")
+    res = distributed.run_multiprocess_dryrun(2, 2, "cuda", timeout=600,
+                                              visible=["0", "1"])
+    assert res.get("ok"), res
+    assert res["backend"] == "nccl"
