@@ -43,7 +43,26 @@ Phases, one JSON line each on stdout:
                 launch count (zeroed just before, read just after);
   8. mbp:       rotation mode on 8 x 1 Mbp (seed 7): the port's CLI
                 against the native host engine's CLI on the same machine;
-  9. band:      the band kernel (one band of the column-sharded DP, on
+  9. routing:   the crossovers behind the port's routing defaults: a
+                merge that goes alone (the native host fill and walk
+                against one profile_path launch with its upload and the
+                path's download; squares 64^2 to 8192^2, skewed shapes,
+                and every merge of Primates' and Set3's rounds, each
+                pair of paths equal), a round (the host fills in turn
+                against one batched launch; Primates' and Set3's rounds
+                and synthetic rounds below them) and the rotation route
+                of `auto` (fresh-process R walls, --backend native
+                against device, native, device, device, native, on
+                4 x 16 kbp, 8 x 50 kbp, Primates, Set3 and 8 x 500 kbp,
+                with phase mbp's 8 x 1 Mbp walls); each crossover the
+                measured size that minimises the summed time, the
+                defaults beside them; then the CLI in mode N on Primates
+                and Set3 with --backend native (no kernel launched) and
+                auto (no profile-DP launch), against the fixtures with
+                the integrity check, auto on Primates with its threshold
+                at 0 (mscan launched, no profile DP), and --backend numpy
+                on one tiny fixture;
+ 10. band:      the band kernel (one band of the column-sharded DP, on
                 the profile DP's tile engine) against its plain version,
                 exact in both direction bits of every cell, the bottom
                 row and the right edge: rank-0 edge and halo bands, stale
@@ -53,13 +72,13 @@ Phases, one JSON line each on stdout:
                 the design's floor (its tile anti-diagonals at the
                 profile phase's step time) and the batch fill of the
                 same tile graph;
- 10. seqpar:    dp_path_seqpar on the largest giants of Set3 (16,979 x
+ 11. seqpar:    dp_path_seqpar on the largest giants of Set3 (16,979 x
                 20,852) and Primates (5,307 x 5,945), stale top rows, at
                 2, 4 and 8 ranks on the one card, against the profile
                 kernel's path and the native host library's, and the walk
                 kernel against its host walk; the fill host-timed and its
                 supersteps' device span (CUDA events around every band);
- 11. sharded:   the port's CLI with --backend sharded --mesh 8x1 on
+ 12. sharded:   the port's CLI with --backend sharded --mesh 8x1 on
                 Primates and Set3: output against the fixtures, the
                 rotation sharded too (its profile holds
                 rot.block_stage[sharded] and idx.replicate), the seqpar
@@ -67,7 +86,7 @@ Phases, one JSON line each on stdout:
                 batches inside align.dp_fill, and the band and profile
                 kernels' launch counts (zeroed just before, read just
                 after);
- 12. sharded_rotation: the 8 x 1 Mbp set in mode R over ranks of the one
+ 13. sharded_rotation: the 8 x 1 Mbp set in mode R over ranks of the one
                 card: analyze(mesh=...) at 1, 2, 4 and 8 ranks and the
                 CLI at --backend sharded --mesh 8x1, each twice, their
                 rotations against the native engine's and the
@@ -79,7 +98,7 @@ Phases, one JSON line each on stdout:
                 argsort, the sharded alignment, Set3's giant at 8 ranks);
                 and Primates at --mesh 3x1 (the single-device stage on the
                 mesh's first rank), twice, against the fixture.
- 13. distributed: the multi-process launch.  The dryrun (2 processes x
+ 14. distributed: the multi-process launch.  The dryrun (2 processes x
                 4 ranks on the card, over gloo: the ladder, the final
                 blocks and the rank-split gap DP against one process);
                 the CLI in mode N on Primates and Set3 at --mesh 8x1 as
@@ -92,10 +111,11 @@ Phases, one JSON line each on stdout:
                 processes); on one card a line says that leg was not run.
                 The one-card legs run on card 0 on any machine.
 Then the card's name and power limit, one short summary line a kernel
-shape, one of the sharded rotation's walls and one of the distributed
-phase (its time beside its bound, so that the end of the output keeps
-every row), a JSON line with one entry per kernel (its time, the plain
-version's, the bound, the library call's), and the last line
+shape, one of the sharded rotation's walls, one of the distributed
+phase and one of the routing phase (its crossovers and the card), so
+that the end of the output keeps every row, a JSON line with one entry
+per kernel (its time, the plain version's, the bound, the library
+call's), and the last line
 {"ok": true, "device": {...}}.  Any failed phase
 raises: the exit code is non-zero and the last line is not printed.
 Without a CUDA device it exits 2 before printing anything.
@@ -722,7 +742,8 @@ def phase_verify(cli, kernels, nw, verification):
 
 
 def _mbp_set(n=1_000_000, k=8, seed=7):
-    """8 x 1 Mbp circular set: one random base, rotated and mutated."""
+    """k x n circular set (8 x 1 Mbp): one random base, rotated and
+    mutated."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -736,12 +757,12 @@ def _mbp_set(n=1_000_000, k=8, seed=7):
     return rows
 
 
-def _write_mbp(path: Path) -> None:
+def _write_mbp(path: Path, n=1_000_000, k=8) -> None:
     import numpy as np
 
     letters = np.frombuffer(b"ACGT", dtype=np.uint8)
     with open(path, "w") as f:
-        for i, row in enumerate(_mbp_set()):
+        for i, row in enumerate(_mbp_set(n, k)):
             f.write(f">s{i}\n{letters[row].tobytes().decode()}\n")
 
 
@@ -769,7 +790,315 @@ def phase_mbp(cli, rot, kernels, fio):
           "port_cli_R_wall_s": port_wall,
           "port_analyze_wall_s": port_analyze_ms / 1e3,
           "native_cli_R_wall_s": native_wall})
-    return want, port_analyze_ms / 1e3
+    return want, port_analyze_ms / 1e3, {"device": port_wall,
+                                         "native": native_wall}
+
+
+# the routing phase's synthetic merges (rows x columns): squares, and
+# skewed both ways
+ROUTING_SHAPES = [(n, n) for n in (64, 128, 256, 512, 1024, 2048, 4096,
+                                   8192)] + [
+    (64, 1024), (1024, 64), (128, 8192), (8192, 128), (512, 8192),
+    (8192, 512), (2048, 8192)]
+# the routing phase's synthetic rounds below Primates' smallest (35 M
+# cells): (merges, rows = columns of each)
+ROUTING_ROUNDS = [(2, 256), (8, 256), (50, 128), (8, 512), (50, 256),
+                  (8, 1024), (2, 2048), (50, 512)]
+# the routing phase's synthetic R sets below Primates and between Set3
+# and 8 x 1 Mbp: (name, length, sequences) from _mbp_set's generator
+ROUTING_R_SETS = [("s4x16k", 16_000, 4), ("s8x50k", 50_000, 8),
+                  ("s8x500k", 500_000, 8)]
+
+
+def crossover(points):
+    """The measured size T that minimises the summed time of ``points``
+    ((size, host ms, card ms) each) when sizes of T and more go to the
+    card and the rest to the host; ties go to the smaller T.  None when
+    the host alone is faster than every such split."""
+    sizes = sorted({p[0] for p in points})
+    total = lambda T: sum(c if s >= T else h for s, h, c in points)  # noqa
+    t_host = sum(h for _, h, _ in points)
+    best = min(sizes, key=lambda T: (total(T), T), default=None)
+    return None if best is None or t_host < total(best) else best
+
+
+def _copy_item(item):
+    import numpy as np
+
+    return tuple(np.array(x) if isinstance(x, np.ndarray) else x
+                 for x in item)
+
+
+def _capture_rounds(msa, profile, fio, name):
+    """The gap DP's rounds of ``name`` (at the fixture's rotations) as the
+    device route batches them with both gates at 0: the fill inputs of
+    every launch, copied (the host state changes them after)."""
+    rounds = []
+    real = profile.profile_paths
+
+    def spy(items, device, **kw):
+        rounds.append([_copy_item(it) for it in items])
+        return real(items, device, **kw)
+
+    seqs = fio.load_fasta(str(FIX / f"{name}.txt"), log=io.StringIO())
+    rotations = rotations_of(fio, FIX / f"{name}-Rotated.fasta")
+    saved = {k: os.environ.get(k) for k in ("CSA_TPU_DEVICE_MIN_CELLS",
+                                            "CSA_TPU_BATCH_MIN_CELLS")}
+    os.environ.update({k: "0" for k in saved})
+    profile.profile_paths = spy
+    try:
+        msa.align(seqs, rotations, device="cuda", backend="device",
+                  log=io.StringIO())
+    finally:
+        profile.profile_paths = real
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    return rounds
+
+
+def _host_ms(native, item):
+    """(path, host ms) of one native fill and walk."""
+    t0 = time.perf_counter()
+    res = native.dp_fill_path(item[0], item[1], item[2], item[3], item[4])
+    return res[1], (time.perf_counter() - t0) * 1e3
+
+
+def _merge_points(np, native, profile, items, reps):
+    """(cells, host ms, card ms) of each merge: the native fill against
+    one profile_path launch with its upload and the path's download,
+    each the least of ``reps`` warm runs; the two paths must agree."""
+    out = []
+    for it in items:
+        R, C = len(it[0]), len(it[1])
+        host = []
+        for _ in range(reps):
+            want, ms = _host_ms(native, it)
+            host.append(ms)
+        card = []
+        for _ in range(reps):
+            got, ms = wall_ms(lambda: profile.profile_path(
+                it[0], it[1], it[2], it[3], it[4], device="cuda"))
+            card.append(ms)
+        check(np.array_equal(got, want),
+              f"routing: the card's path of a {R} x {C} merge differs from "
+              "the native host fill's")
+        out.append((R * C, min(host), min(card)))
+    return out
+
+
+def _bins(points):
+    """Merges binned by cells (powers of 4 from 4^3): count, host and
+    card ms summed, merges where the card wins."""
+    bins = {}
+    for cells, h, c in points:
+        b = 4 ** max(3, (max(cells, 1).bit_length() - 1) // 2)
+        rec = bins.setdefault(b, [0, 0.0, 0.0, 0])
+        rec[0] += 1
+        rec[1] += h
+        rec[2] += c
+        rec[3] += c < h
+    return [{"cells_from": b, "merges": n, "host_ms": h, "card_ms": c,
+             "card_wins": w} for b, (n, h, c, w) in sorted(bins.items())]
+
+
+def _r_walls(tmp: Path, name: str):
+    """Fresh-process walls of the port's CLI in mode R on ``name``.txt in
+    ``tmp``, native and device in turns (native, device, device,
+    native); the rotated output of both routes must agree."""
+    walls = {"native": [], "device": []}
+    out = {}
+    for backend in ("native", "device", "device", "native"):
+        rotated = tmp / f"{name}-Rotated.fasta"
+        rotated.unlink(missing_ok=True)
+        walls[backend].append(run_python(tmp, [
+            "-m", "csa_tpu_torch.cli", "R", f"{name}.txt", "--backend",
+            backend]))
+        out.setdefault(backend, rotated.read_bytes())
+    check(out["native"] == out["device"],
+          f"routing: {name} rotated differently by the native and the "
+          "device route")
+    return walls, out["native"]
+
+
+def phase_routing(cli, rot, kernels, fio, msa, profile, native, tools_files,
+                  config, mbp_walls):
+    """The crossovers behind the port's routing defaults: a merge (the
+    native host fill against one profile_path launch), a round (the
+    host fills in sequence against one batched launch) and the rotation
+    route of `auto` (fresh-process R walls, --backend native against
+    device); then the native, auto and numpy routes' output."""
+    import numpy as np
+
+    rng = np.random.default_rng(23)
+    i = 9
+
+    def item(R, C):
+        sv = rng.integers(0, i + 1, size=(C, 5)).astype(np.int64)
+        return (rng.integers(0, 4, size=R).astype(np.int64), sv, i,
+                rng.integers(-60, 10, size=C + 1).astype(np.int64), -i)
+
+    synth = [item(R, C) for R, C in ROUTING_SHAPES]
+    profile.profile_path(*synth[0], device="cuda")  # warm-up
+    synth_pts = _merge_points(np, native, profile, synth, 3)
+
+    merges = {}
+    batches = {"synthetic": [[item(n, n) for _ in range(g)]
+                             for g, n in ROUTING_ROUNDS]}
+    for name in ("Primates", "Set3"):
+        batches[name] = _capture_rounds(msa, profile, fio, name)
+        merges[name] = _merge_points(
+            np, native, profile, [it for r in batches[name] for it in r], 2)
+    rounds = {}
+    for name, caught in batches.items():
+        rows = []
+        for items in caught:
+            cells = sum(len(it[0]) * len(it[1]) for it in items)
+            host = min(sum(_host_ms(native, it)[1] for it in items)
+                       for _ in range(2))
+            card = min(wall_ms(lambda: profile.profile_paths(
+                items, "cuda"))[1] for _ in range(2))
+            rows.append((cells, host, card, len(items)))
+        rounds[name] = rows
+    merge_pts = synth_pts + merges["Primates"] + merges["Set3"]
+    round_pts = [r[:3] for name in rounds for r in rounds[name]]
+
+    r_walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, n, k in ROUTING_R_SETS:
+            _write_mbp(tmp / f"{name}.txt", n, k)
+            walls, _ = _r_walls(tmp, name)
+            r_walls[name] = {"chars": n * k, **walls}
+        for name in ("Primates", "Set3"):
+            copy_fixture(tmp, name)
+            walls, rotated = _r_walls(tmp, name)
+            check(rotated == (FIX / f"{name}-Rotated.fasta").read_bytes(),
+                  f"routing: {name} -Rotated.fasta differs (mode R)")
+            seqs = fio.load_fasta(str(FIX / f"{name}.txt"), log=io.StringIO())
+            r_walls[name] = {"chars": int(sum(seqs.sizes)), **walls}
+    # 8 x 1 Mbp from phase mbp: the port's CLI in this process (device)
+    # and the JAX package's native CLI in its own
+    r_walls["s8x1M"] = {"chars": 8_000_000, "device": [mbp_walls["device"]],
+                        "native": [mbp_walls["native"]]}
+    r_pts = [(v["chars"], min(v["native"]), min(v["device"]))
+             for v in r_walls.values()]
+
+    # the routes' output on the card's machine: native and auto on
+    # Primates and Set3 in mode N, numpy on one small set
+    routes = {}
+    for backend in ("native", "auto"):
+        for name in ("Primates", "Set3"):
+            with tempfile.TemporaryDirectory() as tmp:
+                tmp = Path(tmp)
+                copy_fixture(tmp, name)
+                kernels.reset_counts()
+                _, wall = run_port_cli(cli, tmp, [f"{name}.txt", "--backend",
+                                                  backend])
+                counts = dict(kernels.COUNTS)
+                rotf = tmp / f"{name}-Rotated.fasta"
+                aln = tmp / f"{name}-Aligned.fasta"
+                check(rotf.read_bytes() == (FIX / f"{name}-Rotated.fasta")
+                      .read_bytes(), f"routing: {name} --backend {backend}: "
+                                     "-Rotated.fasta differs")
+                check(_content_rows(aln) == _content_rows(
+                    FIX / f"{name}-Rotated-Aligned.fasta"),
+                    f"routing: {name} --backend {backend}: aligned rows "
+                    "differ from the fixture")
+                check(tools_files.test_alignment_output(
+                    str(rotf), str(aln), log=io.StringIO()),
+                    f"routing: {name} --backend {backend}: integrity check "
+                    "failed")
+                check(counts["profile_dp"] == 0 and (
+                    backend == "auto" or not any(counts.values())),
+                    f"routing: --backend {backend} launched {counts}")
+                routes[f"{name} {backend}"] = {"wall_s": wall,
+                                               "launches": counts}
+    # auto resolved to the device (threshold 0): the device route's
+    # rotation, the host's alignment
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        copy_fixture(tmp, "Primates")
+        os.environ["CSA_TPU_AUTO_DEVICE_MIN"] = "0"
+        kernels.reset_counts()
+        try:
+            _, wall = run_port_cli(cli, tmp, ["Primates.txt", "--backend",
+                                              "auto"])
+        finally:
+            os.environ.pop("CSA_TPU_AUTO_DEVICE_MIN")
+        counts = dict(kernels.COUNTS)
+        check((tmp / "Primates-Rotated.fasta").read_bytes()
+              == (FIX / "Primates-Rotated.fasta").read_bytes()
+              and _content_rows(tmp / "Primates-Aligned.fasta")
+              == _content_rows(FIX / "Primates-Rotated-Aligned.fasta"),
+              "routing: Primates --backend auto at threshold 0 differs")
+        check(counts["mscan"] > 0 and counts["profile_dp"] == 0,
+              f"routing: auto at threshold 0 launched {counts}")
+        routes["Primates auto, threshold 0"] = {"wall_s": wall,
+                                                "launches": counts}
+    tiny = FIX / "tiny"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        name = "a-diverge-1"
+        (tmp / f"{name}.txt").write_bytes((tiny / f"{name}.txt").read_bytes())
+        kernels.reset_counts()
+        _, wall = run_port_cli(cli, tmp, [f"{name}.txt", "--backend",
+                                          "numpy"])
+        for suffix in ("-Rotated.fasta", "-Aligned.fasta"):
+            check((tmp / f"{name}{suffix}").read_bytes()
+                  == (tiny / f"{name}{suffix}").read_bytes(),
+                  f"routing: {name} --backend numpy: {suffix} differs")
+        check(not any(kernels.COUNTS.values()),
+              f"routing: --backend numpy launched {dict(kernels.COUNTS)}")
+        routes[f"{name} numpy"] = {"wall_s": wall}
+
+    defaults = config.RunConfig()
+    out = {
+        "card": smi_line(),
+        "merge_crossover_cells": crossover(merge_pts),
+        "round_crossover_cells": crossover(round_pts),
+        "auto_crossover_chars": crossover(r_pts),
+        "defaults": {"device_min_cells": defaults.device_min_cells,
+                     "batch_min_cells": defaults.batch_min_cells,
+                     "auto_device_min_chars": rot.AUTO_DEVICE_MIN_CHARS},
+        "synthetic_merges": [
+            {"R": R, "C": C, "host_ms": h, "card_ms": c}
+            for (R, C), (_, h, c) in zip(ROUTING_SHAPES, synth_pts)],
+        "real_merges": {n: _bins(p) for n, p in merges.items()},
+        "real_merge_crossover_cells": {n: crossover(p)
+                                       for n, p in merges.items()},
+        "rounds": {n: [{"cells": c, "merges": m, "host_ms": h,
+                        "card_ms": d} for c, h, d, m in rows]
+                   for n, rows in rounds.items()},
+        "r_walls_s": r_walls,
+        "routes": routes,
+    }
+    emit({"phase": "routing", **out})
+    return out
+
+
+def summary_routing(out) -> None:
+    syn = {(m["R"], m["C"]): m for m in out["synthetic_merges"]}
+    pick = lambda R, C: (f"{R}x{C} {syn[R, C]['host_ms']:.3f}/"  # noqa
+                         f"{syn[R, C]['card_ms']:.3f}")
+    rnd = {n: (f"{sum(r['host_ms'] for r in rows):.1f}/"
+               f"{sum(r['card_ms'] for r in rows):.1f}")
+           for n, rows in out["rounds"].items() if n != "synthetic"}
+    rnd.update({f"{r['merges']}x{r['cells'] // r['merges']}":
+                f"{r['host_ms']:.2f}/{r['card_ms']:.2f}"
+                for r in out["rounds"]["synthetic"]})
+    rw = ", ".join(f"{n} {min(v['native']):.2f}/{min(v['device']):.2f}"
+                   for n, v in out["r_walls_s"].items())
+    print(f"summary routing ({out['card']}): merge crossover "
+          f"{out['merge_crossover_cells']} cells (host/card ms "
+          f"{pick(64, 64)}, {pick(512, 512)}, {pick(2048, 2048)}, "
+          f"{pick(8192, 8192)}); round crossover "
+          f"{out['round_crossover_cells']} cells (rounds host/card ms "
+          f"{rnd}); auto crossover {out['auto_crossover_chars']} chars "
+          f"(R walls native/device s: {rw}); defaults {out['defaults']}",
+          flush=True)
 
 
 def _band_args(torch, np, profile, rng, Rb, Cloc, i, rank0, sc):
@@ -1221,16 +1550,22 @@ def run_cli_processes(distributed, tools_files, name, n, backend=None,
     return procs, group_wall
 
 
+# the kernels every process of a leg launches: each of Set3's rounds
+# at --mesh 8x1 is a giant (band) and a merge of about 1,000 cells,
+# which the per-merge gate keeps on the native host fill
+LEG_KERNELS = {"Primates": ("mscan", "profile_dp"),
+               "Set3": ("mscan", "band")}
+
+
 def _cli_leg(distributed, tools_files, n, backend, visible=None):
     """Primates and Set3 as ``n`` processes; every process launches
-    mscan and profile_dp, and band on Set3."""
+    mscan and profile_dp on Primates, mscan and band on Set3."""
     out = {}
     for name in ("Primates", "Set3"):
         procs, wall = run_cli_processes(distributed, tools_files, name, n,
                                         backend, visible)
         for pid, p in enumerate(procs):
-            need = ("mscan", "profile_dp") + (("band",) if name == "Set3"
-                                              else ())
+            need = LEG_KERNELS[name]
             check(all(p["launches"][k] > 0 for k in need),
                   f"distributed: {name}, process {pid} of {n} ({backend}) "
                   f"did not launch {need}: {p['launches']}")
@@ -1322,7 +1657,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from csa_tpu_torch import cli, kernels, native
+    from csa_tpu_torch import cli, config, kernels, native
+    from csa_tpu_torch.align import msa
     from csa_tpu_torch.dp import band, nw, profile, seqpar
     from csa_tpu_torch.index import mscan
     from csa_tpu_torch.io import fasta as fio
@@ -1339,7 +1675,9 @@ def main() -> int:
     phase_nw(nw, fio, verification, stats)
     launches, walls = phase_pipeline(cli, kernels, tools_files)
     launches["nw"] = phase_verify(cli, kernels, nw, verification)["nw"]
-    mbp_native, mbp_single_s = phase_mbp(cli, rot, kernels, fio)
+    mbp_native, mbp_single_s, mbp_walls = phase_mbp(cli, rot, kernels, fio)
+    routing = phase_routing(cli, rot, kernels, fio, msa, profile, native,
+                            tools_files, config, mbp_walls)
     phase_band(band, stats)
     phase_seqpar(seqpar, profile, band, kernels, native)
     launches["band"] = phase_sharded(cli, kernels, tools_files, seqpar,
@@ -1363,6 +1701,7 @@ def main() -> int:
     summary(stats, launches)
     summary_sharded_rotation(sharded_rot)
     summary_distributed(dist_out)
+    summary_routing(routing)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **stats[name]}

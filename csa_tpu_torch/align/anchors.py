@@ -1,12 +1,16 @@
 """Multi-MEM anchors (border nodes) over the rotated linear sequences
-(counterpart of the device branch of :mod:`csa_tpu.align.anchors`).
+(counterpart of :mod:`csa_tpu.align.anchors`).
 
-The linear suffix index is sorted on ``device`` by
-:func:`..index.engine.linear_suffix_order`; the attachment statistics are
-host sweeps, the native C++ kernel when it is built and otherwise the
-numpy twin, and the grouping is ``_group_border_nodes``.  The host parts
-(:class:`BorderNode`, :class:`LinearIndex`, the sweeps and the grouping)
-are the port's own copies of those in ``csa_tpu.align.anchors``.
+The linear suffix index has three routes, as in ``csa_tpu``: sorted on
+``device`` by :func:`..index.engine.linear_suffix_order` (``device``),
+by the native host library (``native``), or by the numpy
+prefix-doubling twin (``numpy``, also the ``native`` route's fallback
+when the library is missing).  The attachment statistics are host
+sweeps, the native C++ kernel on the ``device`` and ``native`` routes
+when it is built and otherwise the numpy twin, and the grouping is
+``_group_border_nodes``.  The host parts (:class:`BorderNode`,
+:class:`LinearIndex`, the sweeps and the grouping) are the port's own
+copies of those in ``csa_tpu.align.anchors``.
 """
 
 from __future__ import annotations
@@ -51,10 +55,12 @@ class LinearIndex:
 
 
 
-def build_linear_index(encoded_rotated: Sequence[np.ndarray],
-                       device) -> LinearIndex:
+def build_linear_index(encoded_rotated: Sequence[np.ndarray], device=None,
+                       backend: str = "device") -> LinearIndex:
     """Suffix order of the concatenated rotated sequences, with unique
-    per-sequence separators (0..k-1) below every character code."""
+    per-sequence separators (0..k-1) below every character code.
+    ``backend`` is "device" (sorted on ``device``), "native" or
+    "numpy"."""
     k = len(encoded_rotated)
     sizes = np.array([len(e) for e in encoded_rotated], dtype=np.int64)
     total = int(sizes.sum()) + k
@@ -68,13 +74,75 @@ def build_linear_index(encoded_rotated: Sequence[np.ndarray],
         at += len(e) + 1
     offsets[k] = at
 
-    sa_all, lcp_all = engine.linear_suffix_order(s, device)
+    if backend == "device":
+        sa_all, lcp_all = engine.linear_suffix_order(s, device)
+    elif backend == "native" and (res := native.linear_index(s, k + 5)):
+        sa_all, lcp_all = res
+    else:
+        return _linear_index_numpy(s, offsets, sizes, k)
     # the k separator suffixes sort first; dropping them keeps adjacency
     # among the rest, and the new first entry's lcp is 0 by definition
     sa = sa_all[k:].astype(np.int64)
     lcp = lcp_all[k:].astype(np.int64)
     if len(lcp):
         lcp[0] = 0
+    seq_of = np.searchsorted(offsets, sa, side="right") - 1
+    pos_of = sa - offsets[seq_of]
+    cap = sizes[seq_of] - pos_of
+    return LinearIndex(seq_of=seq_of, pos_of=pos_of, cap=cap, lcp=lcp,
+                       num_seqs=k)
+
+
+def _linear_index_numpy(s: np.ndarray, offsets: np.ndarray,
+                        sizes: np.ndarray, k: int) -> LinearIndex:
+    """The numpy prefix-doubling twin (csa_tpu/align/anchors.py:119-167):
+    rank levels until every suffix is alone, then adjacent LCPs by binary
+    descent over them."""
+    total = len(s)
+    rank = s.copy()
+    levels = [rank.copy()]
+    length = 1
+    while length < total:
+        shifted = np.full(total, -1, dtype=np.int64)
+        shifted[: total - length] = rank[length:]
+        order = np.lexsort((shifted, rank))
+        r1 = rank[order]
+        r2 = shifted[order]
+        newgrp = np.ones(total, dtype=np.int64)
+        newgrp[0] = 0
+        newgrp[1:] = ((r1[1:] != r1[:-1]) | (r2[1:] != r2[:-1])).astype(np.int64)
+        dense = np.cumsum(newgrp)
+        rank = np.empty(total, dtype=np.int64)
+        rank[order] = dense
+        levels.append(rank.copy())
+        length *= 2
+        if dense[-1] == total - 1:
+            break
+
+    sa = np.argsort(levels[-1], kind="stable")
+    # drop separator suffixes (they sort first: ranks of values 0..k-1)
+    is_sep = np.zeros(total, dtype=bool)
+    is_sep[offsets[1:] - 1] = True
+    sa = sa[~is_sep[sa]]
+    m = len(sa)
+
+    # adjacent LCPs by binary descent over the rank levels; separators are
+    # unique so matches terminate at sequence ends automatically
+    lcp = np.zeros(m, dtype=np.int64)
+    if m > 1:
+        a = sa[:-1]
+        b = sa[1:]
+        off = np.zeros(m - 1, dtype=np.int64)
+        for t in range(len(levels) - 1, -1, -1):
+            step = np.int64(1 << t)
+            ga = a + off
+            gb = b + off
+            ok = (ga < total) & (gb < total)
+            eq = ok & (levels[t][np.minimum(ga, total - 1)]
+                       == levels[t][np.minimum(gb, total - 1)])
+            off = np.where(eq, off + step, off)
+        lcp[1:] = off
+
     seq_of = np.searchsorted(offsets, sa, side="right") - 1
     pos_of = sa - offsets[seq_of]
     cap = sizes[seq_of] - pos_of
@@ -168,11 +236,17 @@ def _attach_numpy(idx: LinearIndex):
     return att, lb2
 
 
-def compute_border_nodes(encoded_rotated: Sequence[np.ndarray],
-                         device) -> List[BorderNode]:
-    """All border nodes with their per-sequence position lists."""
-    idx = build_linear_index(encoded_rotated, device)
-    res = native.anchor_attach(idx.seq_of, idx.lcp, idx.cap, idx.num_seqs)
+def compute_border_nodes(encoded_rotated: Sequence[np.ndarray], device=None,
+                         backend: str = "device") -> List[BorderNode]:
+    """All border nodes with their per-sequence position lists, the index
+    built on ``backend``'s route (:func:`build_linear_index`).  The
+    ``numpy`` route keeps the attachment statistics in numpy too, as
+    ``csa_tpu`` does."""
+    idx = build_linear_index(encoded_rotated, device, backend)
+    res = None
+    if backend != "numpy":
+        res = native.anchor_attach(idx.seq_of, idx.lcp, idx.cap,
+                                   idx.num_seqs)
     att, lb2 = res if res is not None else _attach_numpy(idx)
     return _group_border_nodes(idx, att, lb2)
 

@@ -13,18 +13,20 @@ from ..io import fasta as fio
 from . import runner
 
 
-def align(seqs: fio.SequenceSet, rotations: Sequence[int], *, device,
-          mesh=None, log: Optional[TextIO] = None, match: int = 1,
-          mismatch: int = -1, indel: int = -1,
+def align(seqs: fio.SequenceSet, rotations: Sequence[int], *, device=None,
+          mesh=None, backend: str = "device", log: Optional[TextIO] = None,
+          match: int = 1, mismatch: int = -1, indel: int = -1,
           doublegap: int = 0) -> runner.AlignmentResult:
-    """View the sequences through their rotations and align them."""
+    """View the sequences through their rotations and align them on
+    ``backend``'s route (:func:`.runner.run_alignment`)."""
     log = log if log is not None else sys.stdout
     rotated = [
         np.roll(e, -int(r)) for e, r in zip(seqs.encoded_all(), rotations)
     ]
-    result = runner.run_alignment(rotated, device=device, mesh=mesh, log=log,
-                                  match=match, mismatch=mismatch,
-                                  indel=indel, doublegap=doublegap)
+    result = runner.run_alignment(rotated, device=device, mesh=mesh,
+                                  dp_backend=backend, log=log, match=match,
+                                  mismatch=mismatch, indel=indel,
+                                  doublegap=doublegap)
     result.rotated_codes = rotated  # type: ignore[attr-defined]
     return result
 

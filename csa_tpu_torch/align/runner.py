@@ -6,8 +6,12 @@ Exact-behavior equivalent of the reference's alignment routines
 :91-166) and segment management (``alignmentmap.c``
 ``SetAlignmentMapSegments`` :259-315, ``UpdateSegmentGapSizes``
 :240-255).  Segments, the gap-consistency heuristic and the output
-writer are host code copied from the JAX package; the anchors' suffix
-sort and the gap fills run on ``device``.
+writer are host code copied from the JAX package.  ``dp_backend``
+picks the route of the anchors' suffix sort and the gap fills, as in
+``csa_tpu``: ``device`` (and ``sharded``, with a mesh) on ``device``,
+the gap fills batched a round at a time behind the gates of
+:mod:`.progressive`; ``native`` and ``numpy`` on the host, one gap at a
+time (:func:`_run_gaps_host`).
 
 The working coordinate system is the *rotated* sequences: position ``p``
 of sequence ``i`` is ``texts[i][(rotations[i] + p) % n_i]``
@@ -66,20 +70,25 @@ class AlignmentResult:
             yield s
             s = s.next
 
-def run_alignment(rotated_codes: List[np.ndarray], *, device, mesh=None,
+def run_alignment(rotated_codes: List[np.ndarray], *, device=None,
+                  mesh=None, dp_backend: str = "device",
                   log: Optional[TextIO] = None, match: int = 1,
                   mismatch: int = -1, indel: int = -1,
                   doublegap: int = 0) -> AlignmentResult:
     """PrepareTreeForAlignment + RunAlignment (alignment.c:169-214).
     ``mesh`` (a :class:`csa_tpu_torch.parallel.sharded.Mesh`) spreads the
-    gap DP over its ranks, as ``--backend sharded`` does in ``csa_tpu``."""
+    gap DP over its ranks, as ``--backend sharded`` does in ``csa_tpu``.
+    The host routes (``dp_backend`` "native" or "numpy") use neither
+    ``device`` nor ``mesh``."""
     log = log if log is not None else sys.stdout
     k = len(rotated_codes)
     textsizes = np.array([len(c) for c in rotated_codes], dtype=np.int64)
 
     print("> Preparing tree for alignment...", end="", file=log)
     with PROFILER.phase("align.anchors"):
-        nodes = anchors.compute_border_nodes(rotated_codes, device)
+        nodes = anchors.compute_border_nodes(
+            rotated_codes, device,
+            backend={"sharded": "device"}.get(dp_backend, dp_backend))
     with PROFILER.phase("align.machine_init"):
         blist = machine.BorderList(nodes, k)
     print(" ok", file=log)
@@ -115,10 +124,13 @@ def run_alignment(rotated_codes: List[np.ndarray], *, device, mesh=None,
             startsegment = startsegment.next
     if deferred:
         gaps = [_gap_codes(seg, rotated_codes) for seg in deferred]
-        results = progressive.progressive_dp_batched(
-            gaps, device=device, mesh=mesh, match=match, mismatch=mismatch,
-            indel=indel, doublegap=doublegap,
-        )
+        if dp_backend in ("device", "sharded"):
+            results = progressive.progressive_dp_batched(
+                gaps, device=device, mesh=mesh, match=match,
+                mismatch=mismatch, indel=indel, doublegap=doublegap,
+            )
+        else:
+            results = _run_gaps_host(gaps, dp_backend)
         for seg, strings in zip(deferred, results):
             print(f"[({seg.mingapsize:<4}-{seg.maxgapsize:>4})", end="",
                   file=log)
@@ -126,6 +138,16 @@ def run_alignment(rotated_codes: List[np.ndarray], *, device, mesh=None,
             consize = len(strings[0]) if strings else 0
             print(f"->{consize:>4}]", file=log)
     return AlignmentResult(first, last)
+
+
+def _run_gaps_host(gaps: List[List[np.ndarray]],
+                   dp_backend: str) -> List[List[np.ndarray]]:
+    """The independent gap DPs on the host, one after another (as
+    ``csa_tpu`` runs them: small gaps are bound by the merge and state
+    transitions under the interpreter lock, and large ones already use
+    both threads of the native fill)."""
+    return [progressive.progressive_dp(g, dp_backend=dp_backend)
+            for g in gaps]
 
 
 def _gap_codes(segment: Segment, rotated_codes: List[np.ndarray]):

@@ -13,16 +13,35 @@ S         Sum-of-pairs score + stats of an alignment
 M         Convert aligned FASTA -> MSF
 ========  ==========================================================
 
-Modes N, R and A run on ``--device`` (default ``cuda``); I, C, S and M
-are host tools.  Without a CUDA device, ``--device cuda`` exits
-non-zero; the CPU runs only when asked for with ``--device cpu``.
-``--backend sharded`` spreads the rotation block stage (modes N and R)
-and the alignment's gap DP (modes N and A) over a mesh of ``--mesh
-SEQxPOS`` ranks (default: one per visible card) laid out on
-``--device``'s type, several ranks to a card when there are more ranks
-than cards.  Rotation takes the sharded index build and collect front
-on a power-of-two rank count, and the single-device stage on the mesh's
-first rank on any other; the output is the same.
+Modes N, R and A run on the route ``--backend`` names (default
+``device``, or ``CSA_TPU_BACKEND``), the routes of ``csa_tpu`` with
+``device`` in the place of ``jax``:
+
+* ``device``: the rotation block stage, the anchors' suffix sort and
+  the gap DP on ``--device`` (default ``cuda``).  The gap DP's small
+  work stays on the native host library behind two gates, measured on
+  the H100 (:mod:`csa_tpu_torch.config`): a merge below
+  ``--device-min-cells`` cells (``CSA_TPU_DEVICE_MIN_CELLS``), a
+  round's batch below ``CSA_TPU_BATCH_MIN_CELLS`` cells.
+* ``native``: every stage on the port's native host library (its numpy
+  twins where it is missing); ``numpy``: the exact numpy engines.
+  Neither makes a CUDA call.
+* ``auto``: rotation by size (``device`` at or above
+  ``rotation.pipeline.AUTO_DEVICE_MIN_CHARS`` characters,
+  ``CSA_TPU_AUTO_DEVICE_MIN``; ``native`` below), alignment on the host
+  (``native`` when the library is built, else ``numpy``).
+* ``sharded``: the rotation block stage (modes N and R) and the
+  alignment's gap DP (modes N and A) over a mesh of ``--mesh SEQxPOS``
+  ranks (default: one per visible card) laid out on ``--device``'s
+  type, several ranks to a card when there are more ranks than cards.
+  Rotation takes the sharded index build and collect front on a
+  power-of-two rank count, and the single-device stage on the mesh's
+  first rank on any other; the output is the same.
+
+Every route writes the same output.  A route that runs on the card looks
+for it when it starts; without one, ``--device cuda`` exits non-zero
+(``auto`` too, when it resolves to ``device``): the CPU runs only when
+asked for with ``--device cpu``.  I, C, S and M are host tools.
 ``--coordinator HOST:PORT``, ``--num-processes N`` and ``--process-id
 p`` (or the ``CSA_TPU_*`` variables ``csa_tpu`` reads) run modes N, R
 and A as one of N processes (:mod:`csa_tpu_torch.parallel.distributed`):
@@ -32,11 +51,13 @@ and writes its own output next to it, and every process's output is
 the single-process run's.
 ``--verify-rotations`` (modes N and R) scores each chosen rotation
 against sampled alternatives with the pairwise NW kernel on
-``--device`` (:mod:`csa_tpu_torch.rotation.verification`).
+``--device`` (:mod:`csa_tpu_torch.rotation.verification`), whatever
+the route.
 ``CSA_TPU_TORCH_TRACE=<dir>`` wraps the run in ``torch.profiler`` and
 writes ``<dir>/trace.json``.
 
     python -m csa_tpu_torch.cli Primates.txt
+    python -m csa_tpu_torch.cli R Primates.txt --backend native
     python -m csa_tpu_torch.cli R Primates.txt --device cuda --verify-rotations
     python -m csa_tpu_torch.cli Set3.txt --backend sharded --mesh 8x1
     python -m csa_tpu_torch.cli Set3.txt --backend sharded --mesh 8x1 \
@@ -90,18 +111,37 @@ def _load(args) -> fio.SequenceSet:
     return seqs
 
 
-def _resolve_device(name: str):
+DEVICE_ROUTES = ("device", "sharded")
+
+
+def _device(args):
+    """``--device`` as a torch device, looked for the first time a route
+    needs it: a CUDA device that is not there exits non-zero."""
     import torch
 
-    dev = torch.device(name)
+    if isinstance(args.device, torch.device):
+        return args.device
+    dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
             "> ERROR: --device cuda but no CUDA device is available "
             "(use --device cpu to run the plain PyTorch versions on the CPU)"
         )
     if dev.type not in ("cpu", "cuda"):
-        raise SystemExit(f"> ERROR: unsupported --device {name}")
+        raise SystemExit(f"> ERROR: unsupported --device {args.device}")
+    args.device = dev
     return dev
+
+
+def _resolve_host_backend(backend: str) -> str:
+    """``auto`` for the alignment phase: the native host library when it
+    is built, else numpy (csa_tpu/cli.py:108-117); rotation resolves
+    ``auto`` by size in ``rotation.pipeline``."""
+    if backend != "auto":
+        return backend
+    from . import native
+
+    return "native" if native.available() else "numpy"
 
 
 def run_rotation(args, seqs: fio.SequenceSet):
@@ -110,8 +150,13 @@ def run_rotation(args, seqs: fio.SequenceSet):
     from .utils import PROFILER
 
     t0 = time.time()
+    backend = args.backend
+    if backend == "auto":
+        backend = rot.resolve_auto_backend(int(sum(seqs.sizes)))
+    device = _device(args) if backend in DEVICE_ROUTES else None
     try:
-        res = rot.analyze(seqs, device=args.device, pack_w=args.kw["pack_w"],
+        res = rot.analyze(seqs, device=device, backend=backend,
+                          pack_w=args.kw["pack_w"],
                           max_interval=args.kw["max_interval"],
                           log=sys.stdout, mesh=args.rank_mesh)
     except rot.RotationError as e:
@@ -121,7 +166,7 @@ def run_rotation(args, seqs: fio.SequenceSet):
 
         with PROFILER.phase("rot.device_verify"):
             verification.verify_rotations(
-                seqs.encoded_all(), res.rotations, device=args.device,
+                seqs.encoded_all(), res.rotations, device=_device(args),
                 log=sys.stdout,
             )
     with PROFILER.phase("rot.artifacts"):
@@ -134,7 +179,7 @@ def run_rotation(args, seqs: fio.SequenceSet):
         )
     if args.profile:
         print(f"> [profile] rotation phase: {time.time() - t0:.3f}s "
-              f"(device={args.device})")
+              f"(backend={backend}, device={args.device})")
     return res
 
 
@@ -171,8 +216,10 @@ def run_alignment(args, seqs: fio.SequenceSet, rotations) -> str:
 
     alignfile = output_filename(args.input, ALIGNMENT_SUFFIX)
     print("> Running multiple sequence alignment...")
-    result = msa.align(seqs, rotations, device=args.device,
-                       mesh=args.rank_mesh, **scoring_kwargs(args.kw))
+    backend = _resolve_host_backend(args.backend)
+    device = _device(args) if backend in DEVICE_ROUTES else None
+    result = msa.align(seqs, rotations, device=device, mesh=args.rank_mesh,
+                       backend=backend, **scoring_kwargs(args.kw))
     msa.save_alignment(seqs, rotations, result, alignfile)
     rotfile = output_filename(args.input, ROTATIONS_SUFFIX)
     source = rotfile if os.path.exists(rotfile) else args.input
@@ -191,9 +238,15 @@ def main(argv=None) -> int:
                         help="multi-FASTA file")
     parser.add_argument("--device", default="cuda",
                         help="torch device for modes N/R/A (default cuda)")
-    parser.add_argument("--backend", choices=["device", "sharded"],
-                        default="device",
-                        help="device: one device (default); sharded: the "
+    backends = ["auto", "numpy", "native", "device", "sharded"]
+    env_backend = os.environ.get("CSA_TPU_BACKEND", "device")
+    # csa_tpu's `jax` route is the port's `device`
+    env_backend = {"jax": "device"}.get(env_backend, env_backend)
+    parser.add_argument("--backend", choices=backends, default=env_backend,
+                        help="device: one device (default, or "
+                             "CSA_TPU_BACKEND); native / numpy: the host "
+                             "engines, no CUDA call; auto: rotation by "
+                             "size, alignment on the host; sharded: the "
                              "rotation block stage and the alignment's gap "
                              "DP over a mesh of ranks on --device's type")
     parser.add_argument("--mesh", type=_parse_mesh, default=None,
@@ -216,6 +269,11 @@ def main(argv=None) -> int:
                         choices=range(2, 14),
                         help="k-mer packing width of the index engine "
                              "(2..13, default 12)")
+    parser.add_argument("--device-min-cells", type=int, default=None,
+                        metavar="N",
+                        help="per-merge gap-DP cell count from which the "
+                             "device route launches the kernel (below it "
+                             "the native host fill runs)")
     parser.add_argument("--coordinator", default=None, metavar="HOST:PORT",
                         help="multi-process launch: the coordinator's "
                              "address (the same on every process)")
@@ -232,6 +290,9 @@ def main(argv=None) -> int:
     parser.add_argument("--version", action="version",
                         version=f"csa-tpu-torch {__version__}")
     args = parser.parse_args(argv)
+    if args.backend not in backends:
+        parser.error(f"CSA_TPU_BACKEND={env_backend!r} is not one of "
+                     f"{', '.join(backends)}")
 
     from . import config
 
@@ -244,6 +305,9 @@ def main(argv=None) -> int:
         max_interval=args.max_interval,
         pack_w=args.pack_w if args.pack_w is not None else defaults.pack_w,
         mesh_shape=args.mesh,
+        device_min_cells=(args.device_min_cells
+                          if args.device_min_cells is not None
+                          else defaults.device_min_cells),
     )
     # the host code (merge, DGC, native kernels) reads the installed
     # config; the device code takes its scalars
@@ -281,10 +345,13 @@ def _run(args, mode: str) -> int:
     from .utils import PROFILER, torch_trace
 
     if mode in ("N", "R", "A"):
-        args.device = _resolve_device(args.device)
+        # a device route looks for the card now; auto when it resolves
+        # to one, and --verify-rotations when it starts
+        on_device = args.backend in DEVICE_ROUTES
         # the world first: the mesh spans it
-        multi = distributed.initialize(args.coordinator, args.num_processes,
-                                       args.process_id, device=args.device)
+        multi = distributed.initialize(
+            args.coordinator, args.num_processes, args.process_id,
+            device=_device(args) if on_device else "cpu")
         args.rank_mesh = _mesh(args)
         if multi:
             world = distributed.current()

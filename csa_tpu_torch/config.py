@@ -1,5 +1,5 @@
 """Run-time configuration of the port (its own copy of
-:mod:`csa_tpu.config`, without the JAX package's DP-gate fields).
+:mod:`csa_tpu.config`).
 
 * :class:`Scoring` is the progressive-DP scoring matrix.  The host merge
   and DeleteGappedColumns read it through module globals of
@@ -8,8 +8,12 @@
   as keyword arguments (:func:`from_jax_config`, :func:`scoring_kwargs`),
   and ``progressive_dp_batched`` raises when the two disagree.
 * :class:`RunConfig` holds the pipeline-level knobs: block-size and
-  interval bounds, the index engine's k-mer packing width and the rank
-  mesh shape of ``--backend sharded``.
+  interval bounds, the index engine's k-mer packing width, the rank
+  mesh shape of ``--backend sharded`` and the two gates that decide
+  which gap-DP merges of the ``device`` route go to the card
+  (:func:`device_min_cells`, :func:`batch_device_min_cells`; the
+  ``CSA_TPU_DEVICE_MIN_CELLS`` and ``CSA_TPU_BATCH_MIN_CELLS``
+  variables override them, as in ``csa_tpu``).
 
 :func:`from_jax_config` turns any object with the same attributes (the
 port's :class:`RunConfig`, or the JAX package's) into the scalar keyword
@@ -19,6 +23,7 @@ package.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 INT_MAX = 2**31 - 1
@@ -49,17 +54,52 @@ class RunConfig:
     max_interval: int = INT_MAX       # csamsa.c:575
     pack_w: int = 12                  # k-mer packing width of the index
     mesh_shape: tuple | None = None   # (seq, pos) ranks, --backend sharded
+    # gap-DP gates of the device route, at the crossovers that
+    # chip_smoke.py's phase `routing` measured against the native host
+    # fill on an NVIDIA H100 80GB HBM3, 700.00 W (PERF.md section 5):
+    # a merge that goes alone (one profile_path launch with its upload
+    # and download against the native fill; a Primates merge), and a
+    # round's batch (one batched launch against the host fills in turn;
+    # 8 merges of 512 x 512)
+    device_min_cells: int = 2_893_397
+    batch_min_cells: int = 2_097_152
 
 
 DEFAULT_SCORING = Scoring()
 _scoring = DEFAULT_SCORING
+_run_config = RunConfig()
+
+
+def run_config() -> RunConfig:
+    return _run_config
 
 
 def set_run_config(cfg: RunConfig) -> None:
-    """Install a run's scoring matrix into the host DP code (the other
-    fields reach the port's functions as arguments)."""
+    """Install a run's config: its scoring matrix goes into the host DP
+    code, its gates into :func:`device_min_cells` and
+    :func:`batch_device_min_cells` (the other fields reach the port's
+    functions as arguments)."""
+    global _run_config
+    _run_config = cfg
     if cfg.scoring != scoring():
         set_scoring(cfg.scoring)
+
+
+def device_min_cells() -> int:
+    """Per-merge gate: a merge of fewer cells takes the native host fill."""
+    env = os.environ.get("CSA_TPU_DEVICE_MIN_CELLS")
+    if env:
+        return int(env)
+    return _run_config.device_min_cells
+
+
+def batch_device_min_cells() -> int:
+    """Per-round gate: a round's batch of fewer cells in all runs merge
+    by merge on the host instead of as one launch (no mesh only)."""
+    env = os.environ.get("CSA_TPU_BATCH_MIN_CELLS")
+    if env:
+        return int(env)
+    return _run_config.batch_min_cells
 
 
 def scoring() -> Scoring:

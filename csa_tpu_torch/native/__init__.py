@@ -97,6 +97,19 @@ def _load() -> Optional[ctypes.CDLL]:
         ctypes.c_int32, ctypes.c_int32,
         ctypes.c_void_p, ctypes.c_void_p,
     ]
+    lib.csa_rotation_analyze.restype = ctypes.c_int32
+    lib.csa_rotation_analyze.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.csa_linear_index.restype = ctypes.c_int32
+    lib.csa_linear_index.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.csa_set_mt_threshold.restype = None
+    lib.csa_set_mt_threshold.argtypes = [ctypes.c_int64]
     _lib = lib
     # a scoring installed before the lazy load must reach the kernels
     from .. import config
@@ -104,8 +117,6 @@ def _load() -> Optional[ctypes.CDLL]:
     if config.scoring() != config.DEFAULT_SCORING:
         push_scoring(config.scoring())
     return _lib
-
-
 
 
 def available() -> bool:
@@ -121,6 +132,16 @@ def push_scoring(s) -> bool:
     lib.csa_set_scoring(
         int(s.match), int(s.mismatch), int(s.indel), int(s.doublegap)
     )
+    return True
+
+
+def set_mt_threshold(cells: int) -> bool:
+    """Set the two-thread DP-fill dispatch threshold (cells); <= 0
+    restores the default.  Returns False when the library is missing."""
+    lib = _load()
+    if lib is None:
+        return False
+    lib.csa_set_mt_threshold(int(cells))
     return True
 
 
@@ -204,6 +225,78 @@ def dgc(usableseqs, strings, numseqs, scorevector, consize, maxnongaps):
         strings[usableseqs[t]][:consize] = packed[t, :consize]
     scorevector[:consize] = sv32
     return int(new_consize)
+
+
+class NativeRotationBlocks:
+    """Result of the native rotation block stage (csa_rotation_analyze):
+    every collected block with its suffix and uniqueness flags."""
+
+    __slots__ = (
+        "start", "end", "depth", "keep_suffix", "unique", "positions",
+        "num_collected",
+    )
+
+
+def rotation_analyze(encoded, max_blocks: int = 8192):
+    """Native host rotation block stage: cyclic suffix array + capped LCP
+    (cyclic Kasai) + lcp-interval block collection + suffix/uniqueness
+    filters, bit-identical to the numpy engine
+    (csa_tpu_torch/index/cyclic.py).  Returns a NativeRotationBlocks or
+    None when the library is missing.
+    """
+    lib = _load()
+    if lib is None:
+        return None
+    k = len(encoded)
+    offsets = np.zeros(k + 1, dtype=np.int64)
+    np.cumsum([len(e) for e in encoded], out=offsets[1:])
+    codes = np.concatenate(
+        [np.asarray(e, dtype=np.int8) for e in encoded]
+    )
+    while True:
+        counts = np.zeros(4, dtype=np.int32)
+        bstart = np.empty(max_blocks, dtype=np.int32)
+        bend = np.empty(max_blocks, dtype=np.int32)
+        bdepth = np.empty(max_blocks, dtype=np.int32)
+        keep = np.empty(max_blocks, dtype=np.uint8)
+        uniq = np.empty(max_blocks, dtype=np.uint8)
+        positions = np.empty((max_blocks, k), dtype=np.int64)
+        rc = lib.csa_rotation_analyze(
+            codes.ctypes.data, offsets.ctypes.data, k, max_blocks,
+            counts.ctypes.data, bstart.ctypes.data, bend.ctypes.data,
+            bdepth.ctypes.data, keep.ctypes.data, uniq.ctypes.data,
+            positions.ctypes.data,
+        )
+        if rc == 0:
+            break
+        max_blocks = int(rc) + 1024  # needed block count; retry bigger
+    nb = int(counts[1])
+    out = NativeRotationBlocks()
+    out.num_collected = nb
+    out.start = bstart[:nb].astype(np.int64)
+    out.end = bend[:nb].astype(np.int64)
+    out.depth = bdepth[:nb].astype(np.int64)
+    out.keep_suffix = keep[:nb].astype(bool)
+    out.unique = uniq[:nb].astype(bool)
+    out.positions = positions[:nb]
+    return out
+
+
+def linear_index(s: np.ndarray, sigma: int):
+    """Suffix array + adjacent LCPs of one int string with embedded
+    unique separators (values in [0, sigma)); returns (sa, lcp) int32
+    arrays or None when the library is missing."""
+    lib = _load()
+    if lib is None:
+        return None
+    ss = np.ascontiguousarray(s, dtype=np.int32)
+    total = len(ss)
+    sa = np.empty(total, dtype=np.int32)
+    lcp = np.empty(total, dtype=np.int32)
+    lib.csa_linear_index(
+        ss.ctypes.data, total, int(sigma), sa.ctypes.data, lcp.ctypes.data
+    )
+    return sa, lcp
 
 
 def anchor_attach(seq_of: np.ndarray, lcp: np.ndarray, cap: np.ndarray,

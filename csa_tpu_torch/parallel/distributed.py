@@ -321,7 +321,7 @@ def _child_main(argv) -> int:
 
 
 def run_multiprocess_dryrun(n_processes: int = 2, ranks_per_process: int = 4,
-                            device: str = "cpu", timeout: float = 300,
+                            device: str = "cuda", timeout: float = 300,
                             visible: Optional[Sequence[str]] = None) -> dict:
     """Spawn ``n_processes`` processes of ``ranks_per_process`` ranks
     each on ``device``'s type, run the sharded rotation stage and the
@@ -330,7 +330,13 @@ def run_multiprocess_dryrun(n_processes: int = 2, ranks_per_process: int = 4,
     process exited 0.  ``visible`` gives each process its
     ``CUDA_VISIBLE_DEVICES`` (default: every process sees every card,
     so processes that share a card take gloo).  A process that runs
-    over ``timeout`` seconds is killed and the result is not ok."""
+    over ``timeout`` seconds is killed and the result is not ok.
+    ``device="cuda"`` without a CUDA device raises: the CPU runs only
+    when asked for."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("run_multiprocess_dryrun: no CUDA device is "
+                           "available (pass device='cpu' to run on the "
+                           "CPU)")
     port = free_port()
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -375,4 +381,11 @@ if __name__ == "__main__":
 
     if len(sys.argv) > 1 and sys.argv[1] == _CHILD_FLAG:
         sys.exit(_self._child_main(sys.argv[2:]))
-    print(json.dumps(_self.run_multiprocess_dryrun()))
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="the multi-process dryrun: 2 processes x 4 ranks")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device type of the ranks (default cuda)")
+    print(json.dumps(_self.run_multiprocess_dryrun(
+        device=parser.parse_args().device)))

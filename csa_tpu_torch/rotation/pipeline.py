@@ -2,34 +2,63 @@
 (counterpart of :func:`csa_tpu.rotation.pipeline.analyze`).
 
 The block stage (index build, collect cascade, suffix and uniqueness
-filters) runs on ``device``, or over the ranks of ``mesh``, through
-:func:`..index.engine.rotation_final`;
-the chain linking and selection are the exact host code of
-:mod:`csa_tpu_torch.rotation.chains`.
-A sequence with duplicate rotations (a periodic input) takes the exact
+filters) has the routes of ``csa_tpu``:
+
+* ``device``: on ``device``, or over the ranks of ``mesh`` (``sharded``),
+  through :func:`..index.engine.rotation_final`;
+* ``native``: the native host library's ``csa_rotation_analyze``
+  (:func:`..native.rotation_analyze`), or the numpy route when the
+  library is missing;
+* ``numpy``: the exact host cyclic index (:mod:`..index.cyclic`);
+* ``auto``: :func:`resolve_auto_backend` by the input's size.
+
+The chain linking and selection are the exact host code of
+:mod:`csa_tpu_torch.rotation.chains`.  On the ``device`` route a
+sequence with duplicate rotations (a periodic input) takes the exact
 host cyclic index, as ``csa_tpu`` does: an algorithmic branch, not a
 device fallback, and it is reported on stderr when taken.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from dataclasses import dataclass, field
 from typing import List, Optional, TextIO
 
 import numpy as np
 
+from .. import native
 from ..index import cyclic, engine
 from ..io.fasta import SequenceSet
 from ..utils import PROFILER
 from . import chains as chains_mod
 from .chains import INT_MAX, Block
 
-__all__ = ["analyze", "chain_label", "RotationError", "RotationResult"]
+__all__ = ["analyze", "chain_label", "resolve_auto_backend",
+           "AUTO_DEVICE_MIN_CHARS", "RotationError", "RotationResult"]
 
 
 class RotationError(RuntimeError):
     pass
+
+
+# `auto` crossover: from this many characters in all (8 x 500 kbp) the
+# fresh-process R wall of the device route beats the native route's,
+# measured by chip_smoke.py's phase `routing` on an NVIDIA H100 80GB
+# HBM3, 700.00 W (PERF.md section 5).  CSA_TPU_AUTO_DEVICE_MIN
+# (characters) overrides it.
+AUTO_DEVICE_MIN_CHARS = 4_000_000
+
+
+def resolve_auto_backend(total_chars: int) -> str:
+    """The route ``auto`` takes for ``total_chars`` characters: native
+    below the threshold, device at or above it.  It does not look for a
+    card: a device route without one fails as ``--backend device``
+    does."""
+    threshold = int(os.environ.get("CSA_TPU_AUTO_DEVICE_MIN",
+                                   AUTO_DEVICE_MIN_CHARS))
+    return "native" if total_chars < threshold else "device"
 
 
 @dataclass
@@ -47,24 +76,38 @@ class RotationResult:
 def analyze(
     seqs: SequenceSet,
     *,
-    device,
+    device=None,
+    backend: str = "device",
     pack_w: int = 12,
     max_interval: int = INT_MAX,
     log: Optional[TextIO] = None,
     mesh=None,
 ) -> RotationResult:
-    """Optimal rotations of a set of circular sequences.  The console
-    narrative is the JAX package's (reference csamsa.c:274-303).  With
-    ``mesh`` (``--backend sharded``) the block stage runs over its ranks
-    and ``device`` is not used."""
+    """Optimal rotations of a set of circular sequences, the block stage
+    on ``backend``'s route ("device", "native", "numpy" or "auto").  The
+    console narrative is the JAX package's (reference csamsa.c:274-303).
+    With ``mesh`` (``--backend sharded``) the device route runs over its
+    ranks and ``device`` is not used; the host routes use neither."""
     log = log if log is not None else sys.stdout
     sizes = seqs.sizes
     encoded = seqs.encoded_all()
+    if backend == "auto":
+        backend = resolve_auto_backend(int(np.sum(sizes)))
 
-    stage = "torch" if mesh is None else "sharded"
-    with PROFILER.phase(f"rot.block_stage[{stage}]"):
-        fused = engine.rotation_final(encoded, device, pack_w=pack_w,
-                                      mesh=mesh)
+    fused = None
+    if backend in ("native", "numpy"):
+        with PROFILER.phase(f"rot.block_stage[{backend}]"):
+            if backend == "native":
+                fused = native.rotation_analyze(encoded)
+    else:
+        stage = "torch" if mesh is None else "sharded"
+        with PROFILER.phase(f"rot.block_stage[{stage}]"):
+            fused = engine.rotation_final(encoded, device, pack_w=pack_w,
+                                          mesh=mesh)
+        if fused is None:
+            print("> note: duplicate rotations within a sequence; the "
+                  "block stage runs on the exact host cyclic index",
+                  file=sys.stderr)
 
     index = None
     if fused is not None:
@@ -74,15 +117,22 @@ def analyze(
         if num_collected == 0:
             raise RotationError("No unique subsequences found")
         print("> Removing suffixes... ", end="", file=log)
-        num_after_suffix = fused.num_after_suffix
-        fstart = fused.final_start
-        fdepth = fused.final_depth
-        fpos = fused.final_positions
+        if isinstance(fused, native.NativeRotationBlocks):
+            # every collected block with its flags (csa_tpu/rotation/
+            # pipeline.py:152-157)
+            num_after_suffix = int(fused.keep_suffix.sum())
+            final = fused.keep_suffix & fused.unique
+            fstart = fused.start[final]
+            fdepth = fused.depth[final]
+            fpos = fused.positions[final]
+        else:
+            num_after_suffix = fused.num_after_suffix
+            fstart = fused.final_start
+            fdepth = fused.final_depth
+            fpos = fused.final_positions
         print(f"{num_after_suffix} nodes left", file=log)
         print("> Removing repeats... ", end="", file=log)
     else:
-        print("> note: duplicate rotations within a sequence; the block "
-              "stage runs on the exact host cyclic index", file=sys.stderr)
         index = cyclic.build_rotation_index(encoded)
         blocks = cyclic.collect_blocks(index)
 

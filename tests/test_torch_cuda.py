@@ -424,3 +424,32 @@ def test_multiprocess_dryrun_over_nccl_a_card_a_process(cuda):
                                               visible=["0", "1"])
     assert res.get("ok"), res
     assert res["backend"] == "nccl"
+
+
+@pytest.mark.cuda
+def test_set3_merge_gate_above_every_merge_matches_default(cuda, tmp_path,
+                                                           monkeypatch):
+    """Set3 with ``--device-min-cells`` above its largest merge (every
+    merge that goes alone takes the native host fill) against the
+    default gates: the same rotated and aligned files, byte for byte."""
+    import pathlib
+
+    from csa_tpu_torch import cli, config
+
+    fix = pathlib.Path(__file__).resolve().parent / "fixtures"
+    out = {}
+    try:
+        for tag, extra in (("default", []),
+                           ("above", ["--device-min-cells", str(1 << 62)])):
+            d = tmp_path / tag
+            d.mkdir()
+            (d / "Set3.txt").write_bytes((fix / "Set3.txt").read_bytes())
+            monkeypatch.chdir(d)
+            assert cli.main(["Set3.txt", *extra]) == 0
+            out[tag] = [(d / f"Set3{s}").read_bytes()
+                        for s in ("-Rotated.fasta", "-Aligned.fasta")]
+    finally:
+        config.set_run_config(config.RunConfig())
+    assert out["above"] == out["default"]
+    assert out["default"][0] == (fix / "Set3-Rotated.fasta").read_bytes()
+

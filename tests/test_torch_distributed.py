@@ -247,6 +247,26 @@ def test_multiprocess_dryrun_parity():
     assert res["final_blocks"] == len(want.final_start) > 0
 
 
+@pytest.mark.filterwarnings("ignore:.*found in sys.modules:RuntimeWarning")
+@pytest.mark.parametrize("argv", [[], ["--device", "cuda"]],
+                         ids=["default", "cuda"])
+def test_dryrun_main_asks_for_the_card(monkeypatch, argv):
+    """``python -m csa_tpu_torch.parallel.distributed`` runs on the card
+    unless asked for the CPU: with no CUDA device it raises before it
+    spawns a process."""
+    import runpy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spawned = []
+    monkeypatch.setattr(distributed, "run_processes",
+                        lambda *a, **k: spawned.append(a))
+    monkeypatch.setattr(sys, "argv", ["distributed", *argv])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runpy.run_module("csa_tpu_torch.parallel.distributed",
+                         run_name="__main__")
+    assert not spawned
+
+
 def test_dryrun_past_its_timeout_is_killed():
     """A group that runs over its deadline is killed and the result is
     not ok, within the call."""
