@@ -110,9 +110,24 @@ Phases, one JSON line each on stdout:
                 same over NCCL, a card a process (2 and, with 4 cards, 4
                 processes); on one card a line says that leg was not run.
                 The one-card legs run on card 0 on any machine.
+ 15. fused:     the fused routes (the block stage and the anchors'
+                linear sort, one CUDA graph replay and one download a
+                call, below FUSED_MAX_CHARS): Primates and Set3 through
+                the CLI in mode N with the gate forced open (twice: the
+                second run must replay only, 3 mscan launches) and shut,
+                every file against the fixtures; the staged and fused
+                walls of rotation_final and linear_suffix_order on
+                4 x 16 kbp, Primates, Set3 and 8 x 50 / 200 / 500 kbp,
+                each pair equal: a key's first call (no graph, no cached
+                guess: what a CLI job pays) and warm calls (replays);
+                the gate the first calls give (crossover) and the one
+                the warm calls would; the graphs' memory; a
+                torch.profiler trace of each block stage on Primates and
+                Set3 (launches, idle share, gaps, the heaviest kernels).
 Then the card's name and power limit, one short summary line a kernel
 shape, one of the sharded rotation's walls, one of the distributed
-phase and one of the routing phase (its crossovers and the card), so
+phase, one of the routing phase (its crossovers and the card) and one
+of the fused phase (its gate, walls, memory and traces), so
 that the end of the output keeps every row, a JSON line with one entry
 per kernel (its time, the plain version's, the bound, the library
 call's), and the last line
@@ -1101,6 +1116,288 @@ def summary_routing(out) -> None:
           flush=True)
 
 
+# the sets the fused gate is measured on: the routing phase's R sets
+# around the fixtures, (name, length, sequences) from _mbp_set's
+# generator, or a fixture's name alone
+FUSED_SETS = [("s4x16k", 16_000, 4), ("Primates",), ("Set3",),
+              ("s8x50k", 50_000, 8), ("s8x200k", 200_000, 8),
+              ("s8x500k", 500_000, 8)]
+FUSED_ON = 1 << 62   # a gate above every set: the fused routes run
+
+
+def _fused_set(np, fio, spec):
+    if len(spec) == 1:
+        return fio.load_fasta(str(FIX / f"{spec[0]}.txt"),
+                              log=io.StringIO()).encoded_all()
+    return [np.asarray(r) for r in _mbp_set(spec[1], spec[2])]
+
+
+def _anchor_string(np, enc):
+    """The anchors' linear string of a set (align/anchors.py): each
+    sequence above the k separators, followed by its own separator."""
+    k = len(enc)
+    return np.concatenate([np.append(np.asarray(e, dtype=np.int64) + k, i)
+                           for i, e in enumerate(enc)])
+
+
+@contextlib.contextmanager
+def fused_gate(engine, gate):
+    saved = engine.FUSED_MAX_CHARS
+    engine.FUSED_MAX_CHARS = gate
+    try:
+        yield
+    finally:
+        engine.FUSED_MAX_CHARS = saved
+
+
+def _route_walls(engine, fn):
+    """Warm in-process walls (ms) of ``fn`` on the staged and the fused
+    route, in turns (staged, fused, fused, staged) after a warm-up of
+    each (the fused one captures its graphs): what a process that calls
+    one key again pays."""
+    walls = {"staged": [], "fused": []}
+    for route in ("staged", "fused", "staged", "fused", "fused", "staged"):
+        with fused_gate(engine, 0 if route == "staged" else FUSED_ON):
+            walls[route].append(wall_ms(fn)[1])
+    return {r: w[1:] for r, w in walls.items()}
+
+
+def _first_walls(engine, graphs, fn):
+    """In-process walls (ms) of ``fn``'s first call of a key on each
+    route, in turns (staged, fused, fused, staged): the fused route with
+    no graph and no cached guess (what a CLI job, one process a call,
+    pays on top of the process's start), the staged one as it always
+    runs (it keeps nothing between calls)."""
+    walls = {"staged": [], "fused": []}
+    for route in ("staged", "fused", "fused", "staged"):
+        if route == "fused":
+            graphs.clear()
+            for cache in (engine._TDEEP_CACHE, engine._CAPS_CACHE,
+                          engine._LEVELS_CACHE, engine._LINEAR_LEVELS_CACHE):
+                cache.clear()
+        with fused_gate(engine, 0 if route == "staged" else FUSED_ON):
+            walls[route].append(wall_ms(fn)[1])
+    return walls
+
+
+def _gate(points):
+    """The largest measured size below the crossover of ``points``
+    ((size, fused ms, staged ms) each; sizes from the crossover up go to
+    the staged route): every size when there is none, 0 when the staged
+    route wins from the smallest."""
+    cut = crossover(points)
+    sizes = sorted({p[0] for p in points})
+    return cut, max((x for x in sizes if cut is None or x < cut), default=0)
+
+
+def _device_trace(torch, fn):
+    """One warm call of ``fn`` under torch.profiler: the card's launches
+    (kernels, copies and sets), the share of the call's span (first host
+    op to last device op) in which the card is idle, and the gaps between
+    its busy stretches; ``None`` values where the trace holds no device
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = list(prof.events())
+    dev = sorted((e.time_range.start, e.time_range.end) for e in evs
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not dev:
+        return {"launches": 0, "idle_share": None, "span_ms": None}
+    busy, gaps, (lo, hi) = 0.0, [], dev[0]
+    for a, b in dev[1:]:
+        if a > hi:
+            busy += hi - lo
+            gaps.append(a - hi)
+            lo = a
+        hi = max(hi, b)
+    busy += hi - lo
+    span = hi - min(e.time_range.start for e in evs)
+    tops = sorted(((getattr(a, "device_time_total", 0), a.key, a.count)
+                   for a in prof.key_averages()), reverse=True)[:6]
+    return {"launches": len(dev), "span_ms": span / 1e3,
+            "busy_ms": busy / 1e3, "idle_share": 1 - busy / span,
+            "gaps": len(gaps), "gap_ms_sum": sum(gaps) / 1e3,
+            "gap_ms_max": max(gaps, default=0) / 1e3,
+            "top_device_ms": [(k[:70], n, us / 1e3) for us, k, n in tops]}
+
+
+def phase_fused(cli, engine, graphs, kernels, fio, tools_files):
+    """The fused routes (one CUDA graph replay and one download a call):
+    Primates and Set3 through the CLI in mode N on the fused routes (the
+    gate forced open; twice, the second run replaying only) and on the
+    staged routes, against the fixtures; mscan's launches and the
+    replays; the staged-against-fused walls of rotation_final and
+    linear_suffix_order, first calls and warm calls, and the gates they
+    give; the graphs' memory; a trace of the staged block stage (the
+    picture before) and of the fused one on Primates and Set3."""
+    import numpy as np
+    import torch
+    from csa_tpu_torch.utils import PROFILER
+
+    t_phase = time.perf_counter()
+    real_run = graphs.run
+    keys = []
+
+    def spy(key, program, inputs, device):
+        keys.append(key)
+        return real_run(key, program, inputs, device)
+
+    cli_runs = {}
+    graphs.run = spy
+    try:
+        for name in ("Primates", "Set3"):
+            for tag, gate in (("fused", FUSED_ON), ("fused_again", FUSED_ON),
+                              ("staged", 0)):
+                with tempfile.TemporaryDirectory() as tmp, \
+                        fused_gate(engine, gate):
+                    tmp = Path(tmp)
+                    copy_fixture(tmp, name)
+                    PROFILER.reset()
+                    del keys[:]
+                    captures = graphs.STATS["captures"]
+                    kernels.reset_counts()
+                    text, wall = run_port_cli(cli, tmp, [f"{name}.txt",
+                                                         "--profile"])
+                    mscan = kernels.COUNTS["mscan"]
+                    rotf = tmp / f"{name}-Rotated.fasta"
+                    aln = tmp / f"{name}-Aligned.fasta"
+                    check(rotf.read_bytes() == (FIX / f"{name}-Rotated.fasta")
+                          .read_bytes(), f"fused: {name} ({tag}): "
+                                         "-Rotated.fasta differs")
+                    check(_content_rows(aln) == _content_rows(
+                        FIX / f"{name}-Rotated-Aligned.fasta"),
+                        f"fused: {name} ({tag}): aligned rows differ")
+                    check(tools_files.test_alignment_output(
+                        str(rotf), str(aln), log=io.StringIO()),
+                        f"fused: {name} ({tag}): integrity check failed")
+                blocks = sum(k[0] == "block" for k in keys)
+                rec = {"wall_s": wall, "mscan_launches": mscan,
+                       "block_runs": blocks,
+                       "linear_runs": sum(k[0] == "linear" for k in keys),
+                       "captures": graphs.STATS["captures"] - captures,
+                       "idx_fused_phase": "idx.fused" in _profile_phases(
+                           text)}
+                if tag == "staged":
+                    check(not keys and not rec["idx_fused_phase"],
+                          f"fused: {name} at gate 0 ran a fused program")
+                else:
+                    check(blocks >= 1 and rec["linear_runs"] >= 1
+                          and rec["idx_fused_phase"],
+                          f"fused: {name} did not take the fused routes")
+                if tag == "fused_again":
+                    check(rec["captures"] == 0 and blocks == 1
+                          and rec["linear_runs"] == 1,
+                          f"fused: {name}'s second run did not replay "
+                          f"alone: {rec}")
+                    check(mscan == 3 * blocks, f"fused: {name}: {mscan} "
+                          f"mscan launches in {blocks} block replays")
+                cli_runs[f"{name} {tag}"] = rec
+    finally:
+        graphs.run = real_run
+
+    sets, first_pts, warm_pts, memory = {}, [], [], {}
+    for spec in FUSED_SETS:
+        enc = _fused_set(np, fio, spec)
+        padded = len(enc) * engine._bucket(max(len(e) for e in enc))
+        s = _anchor_string(np, enc)
+        total = engine._bucket(len(s))
+        blk_fn = lambda: engine.rotation_final(enc, "cuda")  # noqa
+        lin_fn = lambda: engine.linear_suffix_order(s, "cuda")  # noqa
+        blk = _route_walls(engine, blk_fn)
+        lin = _route_walls(engine, lin_fn)
+        with fused_gate(engine, FUSED_ON):
+            fused = blk_fn()
+            lin_f = lin_fn()
+        with fused_gate(engine, 0):
+            staged = blk_fn()
+            lin_s = lin_fn()
+        check(fused.num_collected == staged.num_collected
+              and np.array_equal(fused.final_start, staged.final_start)
+              and np.array_equal(fused.final_positions,
+                                 staged.final_positions),
+              f"fused: {spec[0]}: the fused block stage differs")
+        check(all(np.array_equal(a, b) for a, b in zip(lin_f, lin_s)),
+              f"fused: {spec[0]}: the fused linear sort differs")
+        k, n_max = len(enc), engine._bucket(max(len(e) for e in enc))
+        memory[spec[0]] = {
+            "block": max((b for key, b, _, _ in graphs.entries()
+                          if key[1][:3] == ("block", k, n_max)), default=0),
+            "linear": max((b for key, b, _, _ in graphs.entries()
+                           if key[1][:2] == ("linear", total)), default=0)}
+        blk1 = _first_walls(engine, graphs, blk_fn)
+        lin1 = _first_walls(engine, graphs, lin_fn)
+        sets[spec[0]] = {"padded": padded, "linear_total": total,
+                         "rotation_final_ms": blk,
+                         "linear_suffix_order_ms": lin,
+                         "rotation_final_first_ms": blk1,
+                         "linear_suffix_order_first_ms": lin1}
+        for size, first, warm in ((padded, blk1, blk), (total, lin1, lin)):
+            first_pts.append((size, min(first["fused"]),
+                              min(first["staged"])))
+            warm_pts.append((size, min(warm["fused"]), min(warm["staged"])))
+    # the default serves the entry points, which call each function once
+    # a process: the gate from the first calls; the warm one is what a
+    # process calling one key again would take
+    cut, gate = _gate(first_pts)
+    warm_cut, warm_gate = _gate(warm_pts)
+
+    traces = {}
+    for name in ("Primates", "Set3"):
+        enc = _fused_set(np, fio, (name,))
+        traces[name] = {
+            "staged": _device_trace(torch, lambda: engine.rotation_final_staged(
+                enc, "cuda")),
+            "fused": _device_trace(torch, lambda: engine._rotation_final_fused(
+                enc, "cuda"))}
+    out = {"card": smi_line(), "cli": cli_runs, "sets": sets,
+           "graph_memory_bytes": memory, "crossover_size": cut,
+           "measured_gate": gate, "warm_crossover_size": warm_cut,
+           "warm_gate": warm_gate, "default_gate": engine.FUSED_MAX_CHARS,
+           "traces": traces,
+           "refinements_cached": {
+               "block": {str(k): v for k, v in engine._LEVELS_CACHE.items()},
+               "linear": {str(k): v for k, v
+                          in engine._LINEAR_LEVELS_CACHE.items()}},
+           "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "fused", **out})
+    return out
+
+
+def summary_fused(out) -> None:
+    ms = lambda d: f"{min(d['staged']):.2f}/{min(d['fused']):.2f}"  # noqa
+    walls = ", ".join(
+        f"{n} {v['padded']} {ms(v['rotation_final_first_ms'])} "
+        f"lin {ms(v['linear_suffix_order_first_ms'])}"
+        for n, v in out["sets"].items())
+    warm = ", ".join(f"{n} {ms(v['rotation_final_ms'])} "
+                     f"lin {ms(v['linear_suffix_order_ms'])}"
+                     for n, v in out["sets"].items())
+    tr = "; ".join(
+        f"{n} " + ", ".join(
+            f"{r} {t['launches']} launches, idle "
+            + ("not measured" if t["idle_share"] is None
+               else f"{t['idle_share']:.0%} of {t['span_ms']:.2f} ms, "
+                    f"top {t['top_device_ms'][0]}")
+            for r, t in v.items())
+        for n, v in out["traces"].items())
+    mem = ", ".join(f"{n} {v['block'] / 2**20:.0f}/{v['linear'] / 2**20:.0f}"
+                    for n, v in out["graph_memory_bytes"].items())
+    again = {n.split()[0]: v["mscan_launches"]
+             for n, v in out["cli"].items() if n.endswith("fused_again")}
+    print(f"summary fused ({out['card']}): gate measured "
+          f"{out['measured_gate']} (crossover {out['crossover_size']}), "
+          f"default {out['default_gate']}, warm gate {out['warm_gate']}; "
+          f"first call staged/fused ms: {walls}; warm staged/fused ms: "
+          f"{warm}; mscan a replayed run {again}; graph MiB block/linear "
+          f"{mem}; traces {tr}; phase {out['seconds']:.1f} s", flush=True)
+
+
 def _band_args(torch, np, profile, rng, Rb, Cloc, i, rank0, sc):
     """One band's inputs on the card: seeded codes and score vector, a
     random stale top row, and rank 0's edge (j * edge_rowgap) or a random
@@ -1660,7 +1957,7 @@ def main() -> int:
     from csa_tpu_torch import cli, config, kernels, native
     from csa_tpu_torch.align import msa
     from csa_tpu_torch.dp import band, nw, profile, seqpar
-    from csa_tpu_torch.index import mscan
+    from csa_tpu_torch.index import engine, graphs, mscan
     from csa_tpu_torch.io import fasta as fio
     from csa_tpu_torch.parallel import distributed, scaling
     from csa_tpu_torch.rotation import pipeline as rot
@@ -1685,6 +1982,7 @@ def main() -> int:
     sharded_rot = phase_sharded_rotation(cli, rot, kernels, fio, scaling,
                                          mbp_native, mbp_single_s)
     dist_out = phase_distributed(distributed, tools_files)
+    fused = phase_fused(cli, engine, graphs, kernels, fio, tools_files)
     check("jax" not in sys.modules, "jax was imported")
     check("csa_tpu" not in sys.modules, "the JAX package was imported")
 
@@ -1702,6 +2000,7 @@ def main() -> int:
     summary_sharded_rotation(sharded_rot)
     summary_distributed(dist_out)
     summary_routing(routing)
+    summary_fused(fused)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **stats[name]}

@@ -1,5 +1,6 @@
-"""Cyclic suffix-array engine on torch tensors (counterpart of the staged
-single-device path of :mod:`csa_tpu.index.engine`).
+"""Cyclic suffix-array engine on torch tensors (counterpart of the
+single-device paths of :mod:`csa_tpu.index.engine`: the staged one and,
+below ``FUSED_MAX_CHARS``, the single-dispatch programs).
 
 The algorithm is the JAX package's, stage for stage, with the same padded
 layout: sequences are padded to ``n_max = _bucket(max len)`` and a
@@ -21,10 +22,12 @@ rotation is the flat index ``g = seq * n_max + pos``, so ``order`` and
 
 Every other operation is a plain torch op.  XLA needs static shapes, so
 the JAX package pads its block tables to ``cap``/``ecap``/``fcap`` and
-retries on overflow; eager torch sizes them from the data, and the
-outputs are identical.  JAX clamps out-of-range gathers and drops
-out-of-range scatters while torch raises; every index below is in range
-by construction (the comments say why where it is not obvious).
+retries on overflow; the staged route here sizes them from the data,
+and the fused route (one CUDA graph a call, :mod:`.graphs`) pads and
+retries as JAX does; the outputs are identical.  JAX clamps
+out-of-range gathers and drops out-of-range scatters while torch raises;
+every index below is in range by construction (the comments say why
+where it is not obvious).
 
 Two-key stable sorts become one stable ``torch.sort`` of an int64 key
 packing both int32 keys (the first key in the high part), which orders
@@ -33,19 +36,29 @@ exactly like ``jax.lax.sort(..., num_keys=2, is_stable=True)``.
 
 from __future__ import annotations
 
+import functools
+import os
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..utils import PROFILER, sync
-from . import mscan
+from . import graphs, mscan
 
 _ALPHA = 5  # alphabet (ACGT-)
 
 
 def _bucket(n: int, quantum: int = 1024) -> int:
     return ((n + quantum - 1) // quantum) * quantum
+
+
+def _num_levels(n_max: int, pack_w: int) -> int:
+    """Packed cyclic rank levels: pack_w << (levels - 1) >= n_max."""
+    t = 1
+    while (pack_w << (t - 1)) < n_max:
+        t += 1
+    return t
 
 
 def _linear_levels(total: int) -> int:
@@ -77,7 +90,7 @@ def _stable_sort2(k1: torch.Tensor, k2: torch.Tensor, span: int):
 
 def _n_of_flat(lengths: torch.Tensor, n_max: int) -> torch.Tensor:
     """(N,) per-rotation sequence length (>= 1)."""
-    return lengths.clamp(min=1).repeat_interleave(n_max)
+    return lengths.clamp(min=1)[:, None].expand(-1, n_max).reshape(-1)
 
 
 def _pack_keys(codes: torch.Tensor, lengths: torch.Tensor, *, n_max: int,
@@ -105,14 +118,18 @@ def _pack_keys(codes: torch.Tensor, lengths: torch.Tensor, *, n_max: int,
 
 
 def _group_stats(newgrp: torch.Tensor, g: torch.Tensor):
-    """Group start per sorted slot, tied-group count and max group size."""
+    """Group start per sorted slot, tied-group count and max group size,
+    the counts as device scalars (no host read).  A cumsum and a table
+    of group starts, not two one-row running max/min scans: a slot's
+    group start, and the next group's start or ``n``."""
     n = newgrp.shape[0]
-    start_idx = torch.cummax(torch.where(newgrp, g, 0), 0).values
-    a = torch.where(newgrp, g, n)
-    nxt = torch.cat([torch.cummin(a.flip(0), 0).values.flip(0)[1:],
-                     a.new_full((1,), n)])
-    size = nxt - start_idx
-    return start_idx, int((size > 1).sum()), int(size.max())
+    gid = torch.cumsum(newgrp, 0) - 1
+    # first[j]: start of group j; first[#groups] stays n; n + 1 is a dump
+    first = g.new_full((n + 2,), n)
+    first.scatter_(0, torch.where(newgrp, gid, n + 1), g)
+    start_idx = first[gid]
+    size = first[gid + 1] - start_idx
+    return start_idx, (size > 1).sum(), size.max()
 
 
 def _level0(packed, lengths, *, n_max: int, pack_w: int):
@@ -146,13 +163,18 @@ def _refine(rank, lengths, h: int, *, n_max: int):
     return order, rank_new, num_tied, max_group
 
 
-def _dup_check(order, rank, lengths, *, n_max: int) -> bool:
-    """Same-sequence identical periodic rotations."""
+def _dup_flag(order, rank, lengths, *, n_max: int) -> torch.Tensor:
+    """Same-sequence identical periodic rotations, as a device bool."""
     rs = rank[order]
     seq_s = order // n_max
     valid_s = (order % n_max) < _n_of_flat(lengths, n_max)[order]
-    return bool(((rs[1:] == rs[:-1]) & (seq_s[1:] == seq_s[:-1])
-                 & valid_s[1:]).any())
+    return ((rs[1:] == rs[:-1]) & (seq_s[1:] == seq_s[:-1])
+            & valid_s[1:]).any()
+
+
+def _dup_check(order, rank, lengths, *, n_max: int) -> bool:
+    """Same-sequence identical periodic rotations."""
+    return bool(_dup_flag(order, rank, lengths, n_max=n_max))
 
 
 def _lcp_step(off, rank_t, a, b, n_a, n_b, h: int, *, n_max: int):
@@ -216,12 +238,14 @@ def _device_build(encoded: Sequence[np.ndarray], device, *, pack_w: int = 12):
     with PROFILER.phase("idx.l0_sort"):
         order, rank, nt, mg0 = _level0(packed, lengths, n_max=n_max,
                                        pack_w=pack_w)
+        nt, mg0 = int(nt), int(mg0)
     ranks = [rank]
     t = 0
     with PROFILER.phase("idx.refine"):
         while nt > 0 and (pack_w << t) < n_max:
             order, rank, nt, _ = _refine(rank, lengths, pack_w << t,
                                          n_max=n_max)
+            nt = int(nt)
             ranks.append(rank)
             t += 1
     if nt > 0 and _dup_check(order, rank, lengths, n_max=n_max):
@@ -350,8 +374,10 @@ def _collect_front(order, lcp, lengths, *, k: int, n_max: int, tdeep: int,
     head = torch.cat([sk.new_ones(1, dtype=torch.bool),
                       (sk[1:] != sk[:-1]) | (ek[1:] != ek[:-1])])
     seg_id = torch.cumsum(head.to(torch.int64), 0) - 1
-    canon_of_seg = torch.zeros_like(idx)
-    canon_of_seg[seg_id[head]] = bidx[head]
+    # the scatters write the unselected slots to a dump slot past N, so
+    # no shape depends on the data (the fused program runs this front)
+    canon_of_seg = torch.zeros(n_total + 1, dtype=idx.dtype, device=dev)
+    canon_of_seg.scatter_(0, torch.where(head, seg_id, n_total), bidx)
     canon_arr = torch.empty_like(idx)
     canon_arr[bidx] = canon_of_seg[seg_id]
     is_canon = has_node & (canon_arr == idx)
@@ -360,9 +386,10 @@ def _collect_front(order, lcp, lengths, *, k: int, n_max: int, tdeep: int,
     parent_bound, parent_d = _parents(lcp, start, end, n_total)
     has_parent = is_canon & allseq & (parent_d >= 1)
     pb = torch.where(has_parent, parent_bound.clamp(max=n_total - 1), 0)
-    haschild = torch.zeros(n_total, dtype=torch.bool, device=dev)
-    haschild[canon_arr[pb][has_parent]] = True
-    collected = is_canon & allseq & ~haschild
+    haschild = torch.zeros(n_total + 1, dtype=torch.bool, device=dev)
+    haschild.scatter_(0, torch.where(has_parent, canon_arr[pb], n_total),
+                      has_parent)
+    collected = is_canon & allseq & ~haschild[:n_total]
     return collected, start, end
 
 
@@ -442,11 +469,268 @@ def _slim(nb: int, n_suffix: int, start, depth, pos) -> RotationFinal:
     return out
 
 
+# The fused route: the whole block stage as ONE program of static shapes
+# (csa_tpu.index.engine._fused_small_program), run on a CUDA device as
+# one replay of a CUDA graph (.graphs) with one download.  The program
+# makes no host read, so the level loop is unrolled to a cached guess
+# ``levels`` of the refinement count (JAX runs an on-device while_loop):
+# a refinement of all-unique group-start ranks gives back the same rank,
+# so a guess at or above the count the data needs gives JAX's output
+# exactly, and the program returns the tie count for the host to retry a
+# guess that was too small.  Every shape that JAX pads to a cap is
+# padded the same way and validated the same way.
+
+# padded size k * _bucket(max len) up to which rotation_final and
+# linear_suffix_order take the fused route.  The default, 0, turns it
+# off: every entry point calls each function once a process (a CLI job,
+# a web job's CLI), and chip_smoke.py's phase `fused` and
+# index/fused_walls.py measured, on an NVIDIA H100 80GB HBM3, 700.00 W
+# (PERF.md section 5), that such a first call is slower fused (a
+# capture) than staged at every size from 4 x 16 kbp to 8 x 500 kbp;
+# only a process that calls one key again gains (a replay).
+# CSA_TPU_FUSED_MAX_CHARS overrides it, read at import as csa_tpu
+# reads it
+FUSED_MAX_CHARS = int(os.environ.get("CSA_TPU_FUSED_MAX_CHARS", 0))
+
+# the host loop's first guesses (csa_tpu's: tdeep 7, fcap 1024, ecap
+# 1 << 14; refinement counts from the fixtures: 3-7 cyclic, 6-10 linear)
+TDEEP_START = 7
+FCAP_MIN = 1024
+ECAP_MIN = 1 << 14
+LEVELS_START = 6
+LINEAR_LEVELS_START = 10
+LEVELS_STEP = 2
+
+# (k, n_max) -> last good guess, as csa_tpu's caches
+_TDEEP_CACHE: dict = {}
+_CAPS_CACHE: dict = {}   # (cap, ecap, fcap)
+_LEVELS_CACHE: dict = {}
+_LINEAR_LEVELS_CACHE: dict = {}  # total -> refinements
+
+
+def _first_true(mask: torch.Tensor, size: int) -> torch.Tensor:
+    """Indices of the first ``size`` set entries of ``mask``, the rest 0
+    (``jnp.nonzero(mask, size=size, fill_value=0)``)."""
+    pos = torch.cumsum(mask, 0) - 1
+    out = pos.new_zeros(size + 1)
+    out.scatter_(0, torch.where(mask & (pos < size), pos, size),
+                 torch.arange(mask.shape[0], device=mask.device))
+    return out[:size]
+
+
+def _collect_tail_capped(order, lcp, lengths, collected, start, end, *,
+                         k: int, n_max: int, cap: int, ecap: int,
+                         fcap: int) -> torch.Tensor:
+    """Twin of csa_tpu's ``_collect_tail`` with its static caps: blocks
+    padded to ``cap``, interval members to ``ecap``, final blocks to
+    ``fcap``; gathers clamped and scatters of unused slots sent to a
+    slot past the end, as JAX clamps and drops.  Returns the slim packed
+    vector ``[nb, total_e, n_suffix, n_final, fstart(fcap),
+    fdepth(fcap), fpos(fcap * k)]``; a count above its cap tells the
+    host to retry larger."""
+    n_total = k * n_max
+    dev = order.device
+    n_of = _n_of_flat(lengths, n_max)
+    pos_sorted = order % n_max
+
+    # compact to cap blocks
+    nb = collected.sum()
+    bsel = _first_true(collected, cap)
+    bi = torch.arange(cap, device=dev)
+    validb = bi < nb
+    bstart = torch.where(validb, start[bsel], 0)
+    bend = torch.where(validb, end[bsel], -1)
+    bdepth = torch.where(validb, lcp[bsel], 0)
+    width = torch.where(validb, bend - bstart + 1, 0)
+    offs = torch.cat([width.new_zeros(1), torch.cumsum(width, 0)])
+    total_e = offs[cap]
+
+    # expand the (disjoint) collected intervals to ecap members.  JAX
+    # scatters each live block's id to its first member (clamped to
+    # ecap - 1) and takes a running max; the starts grow with the block
+    # id, so that max is the c-th live block, c the live blocks starting
+    # at or before the member: a count and a cumsum, not a one-row scan
+    e_idx = torch.arange(ecap, device=dev)
+    live = validb & (width > 0)
+    seen = torch.zeros(ecap, dtype=torch.int64, device=dev).scatter_add_(
+        0, torch.where(live, offs[:cap].clamp(max=ecap - 1), ecap - 1),
+        live.to(torch.int64)).cumsum(0)
+    blk = torch.where(seen > 0,
+                      _first_true(live, cap)[(seen - 1).clamp(min=0)], 0)
+    active = e_idx < total_e.clamp(max=ecap)
+    r = torch.where(active, bstart[blk] + (e_idx - offs[blk]), 0)
+    gmem = order[r]
+    mseq = gmem // n_max
+    d_b = bdepth[blk]
+    end_rot = mseq * n_max + (gmem % n_max + d_b) % n_of[gmem]
+
+    # suffix filter: occurrence-end join
+    repg = order[bstart.clamp(max=n_total - 1)]
+    rbase = (repg // n_max) * n_max
+    rep_end = rbase + (repg - rbase + bdepth) % n_of[repg]
+    maxd = torch.full((n_total + 1,), -1, dtype=torch.int64, device=dev)
+    maxd.scatter_reduce_(0, torch.where(validb, rep_end, n_total),
+                         torch.where(validb, bdepth, -1), reduce="amax")
+    hit = active & (maxd[end_rot.clamp(max=n_total - 1)] > d_b)
+    removed = torch.zeros(cap, dtype=torch.int64, device=dev)
+    removed.scatter_reduce_(0, torch.where(active, blk, cap - 1),
+                            hit.to(torch.int64), reduce="amax")
+    keep_suffix = validb & (removed == 0)
+
+    # uniqueness + positions
+    unique = validb & (width == k)
+    big = 2**30
+    minr = torch.full((cap * k,), big, dtype=torch.int64, device=dev)
+    minr.scatter_reduce_(0, torch.where(active, blk * k + mseq, 0),
+                         torch.where(active, r, big), reduce="amin")
+    positions = torch.where(minr < big,
+                            pos_sorted[minr.clamp(max=n_total - 1)], 0)
+
+    n_suffix = keep_suffix.sum()
+    final = keep_suffix & unique
+    n_final = final.sum()
+    fsel = _first_true(final, fcap)
+    fvalid = torch.arange(fcap, device=dev) < n_final
+    fstart = torch.where(fvalid, bstart[fsel], 0)
+    fdepth = torch.where(fvalid, bdepth[fsel], 0)
+    fpos = torch.where(fvalid[:, None], positions.reshape(cap, k)[fsel], 0)
+    return torch.cat([torch.stack([nb, total_e, n_suffix, n_final]),
+                      fstart, fdepth, fpos.reshape(-1)])
+
+
+def _fused_block_program(codes, lengths, *, k: int, n_max: int,
+                         pack_w: int, levels: int, tdeep: int, cap: int,
+                         ecap: int, fcap: int) -> torch.Tensor:
+    """The rotation block stage with static shapes (twin of csa_tpu's
+    ``_fused_small_program``): pack, level 0, ``levels`` refinements,
+    the duplicate flag, the LCP descent over all ``_num_levels + 1``
+    rank rows (rows past the last refinement hold the final rank), the
+    collect front and the capped tail.  ``codes`` (k, n_max) and
+    ``lengths`` (k,) are integer tensors.  Returns one int32 vector:
+    csa_tpu's ``[dup, mg0, nb, total_e, n_suffix, n_final, fstart(fcap),
+    fdepth(fcap), fpos(fcap * k)]`` followed by the tie count after the
+    last refinement."""
+    codes = codes.to(torch.int64)
+    lengths = lengths.to(torch.int64)
+    lmax = _num_levels(n_max, pack_w)
+    packed = _pack_keys(codes, lengths, n_max=n_max, pack_w=pack_w)
+    order, rank, nt, mg0 = _level0(packed, lengths, n_max=n_max,
+                                   pack_w=pack_w)
+    ranks = [rank]
+    for t in range(levels):
+        order, rank, nt, _ = _refine(rank, lengths, pack_w << t, n_max=n_max)
+        ranks.append(rank)
+    dup = (nt > 0) & _dup_flag(order, rank, lengths, n_max=n_max)
+
+    a, b = order[:-1], order[1:]
+    n_of = _n_of_flat(lengths, n_max)
+    n_a, n_b = n_of[a], n_of[b]
+    off = torch.zeros_like(a)
+    for tt in range(lmax, -1, -1):
+        off = _lcp_step(off, ranks[min(tt, levels)], a, b, n_a, n_b,
+                        pack_w << tt, n_max=n_max)
+    _raw, lcp_pair = _pair_lcp(off, packed, a, b, n_a, n_b, n_max=n_max,
+                               pack_w=pack_w)
+    lcp = torch.cat([lcp_pair.new_zeros(1), lcp_pair])
+    front = _collect_front(order, lcp, lengths, k=k, n_max=n_max,
+                           tdeep=tdeep, pack_w=pack_w)
+    tail = _collect_tail_capped(order, lcp, lengths, *front, k=k,
+                                n_max=n_max, cap=cap, ecap=ecap, fcap=fcap)
+    return torch.cat([torch.stack([dup.to(torch.int64), mg0]), tail,
+                      nt.reshape(1)]).to(torch.int32)
+
+
+def _fused_inputs(encoded: Sequence[np.ndarray]):
+    """(codes (k, n_max) int8, lengths (k,) int64) host tensors."""
+    sizes = np.array([len(e) for e in encoded], dtype=np.int64)
+    n_max = _bucket(int(sizes.max()))
+    codes = np.zeros((len(encoded), n_max), dtype=np.int8)
+    for i, e in enumerate(encoded):
+        codes[i, : len(e)] = e
+    return torch.from_numpy(codes), torch.from_numpy(sizes)
+
+
+def _rotation_final_fused(encoded: Sequence[np.ndarray], device, *,
+                          pack_w: int = 12, cap: int = 4096):
+    """The fused block stage's host loop (csa_tpu's
+    ``_rotation_final_fused``): one run of the program in the common
+    case; a retry, with a new static key, when a cached guess was too
+    small: the refinement count while ties remain below the bound, then
+    ``tdeep`` when ``2**tdeep`` is below the level-0 group size, ``cap``,
+    ``ecap`` and ``fcap`` when their counts overflow.  ``None`` on
+    duplicate rotations."""
+    codes, lengths = _fused_inputs(encoded)
+    k, n_max = codes.shape
+    key = (k, n_max)
+    bound = _num_levels(n_max, pack_w) - 1
+    levels = _LEVELS_CACHE.get(key, min(LEVELS_START, bound))
+    tdeep = _TDEEP_CACHE.get(key, TDEEP_START)
+    ccap, ecap, fcap = _CAPS_CACHE.get(key, (cap, 0, 0))
+    cap = max(cap, ccap)
+    ecap = max(ecap, _pow2_at_least(cap * (k + 2), ECAP_MIN))
+    fcap = max(fcap, FCAP_MIN)
+    while True:
+        static = dict(k=k, n_max=n_max, pack_w=pack_w, levels=levels,
+                      tdeep=tdeep, cap=cap, ecap=ecap, fcap=fcap)
+        with PROFILER.phase("idx.fused"):
+            arr = graphs.run(
+                ("block",) + tuple(static.values()),
+                functools.partial(_fused_block_program, **static),
+                (codes, lengths), device)
+        if arr[-1] > 0 and levels < bound:
+            levels = min(bound, levels + LEVELS_STEP)
+            continue
+        _LEVELS_CACHE[key] = levels
+        dup, mg0 = int(arr[0]), int(arr[1])
+        if dup:
+            return None
+        if (1 << tdeep) < mg0:
+            tdeep = _tdeep_for(mg0, k, n_max)
+            _TDEEP_CACHE[key] = tdeep
+            continue
+        _TDEEP_CACHE[key] = tdeep
+        nb, total_e, n_suffix, n_final = (int(x) for x in arr[2:6])
+        if nb > cap:
+            cap = _pow2_at_least(nb + 1, 4096)
+            ecap = _pow2_at_least(max(ecap, cap * (k + 2)))
+            continue
+        if total_e + 1 > ecap:
+            ecap = _pow2_at_least(total_e + 1)
+            continue
+        if n_final > fcap:
+            fcap = _pow2_at_least(n_final + 1, 1024)
+            continue
+        _CAPS_CACHE[key] = (cap, ecap, fcap)
+        break
+    f = arr[6:-1]
+    return _slim(nb, n_suffix, f[:fcap][:n_final], f[fcap:2 * fcap][:n_final],
+                 f[2 * fcap:].reshape(fcap, k)[:n_final])
+
+
 def rotation_final(encoded: Sequence[np.ndarray], device, *,
                    pack_w: int = 12, mesh=None) -> Optional[RotationFinal]:
     """The rotation block stage: build, collect, filter.  Returns a
     :class:`RotationFinal`, or ``None`` when duplicate rotations demand
     the exact host path (periodic inputs).
+
+    With no mesh and a padded size ``k * _bucket(max len)`` of at most
+    :data:`FUSED_MAX_CHARS` (csa_tpu's gate) the stage is one fused
+    program (:func:`_rotation_final_fused`, a CUDA graph on a card);
+    otherwise it is :func:`rotation_final_staged`.  The output is the
+    same."""
+    padded = len(encoded) * _bucket(max((len(e) for e in encoded),
+                                        default=8))
+    if mesh is None and padded <= FUSED_MAX_CHARS:
+        return _rotation_final_fused(encoded, device, pack_w=pack_w)
+    return rotation_final_staged(encoded, device, pack_w=pack_w, mesh=mesh)
+
+
+def rotation_final_staged(encoded: Sequence[np.ndarray], device, *,
+                          pack_w: int = 12,
+                          mesh=None) -> Optional[RotationFinal]:
+    """The staged block stage: the refinement ends as soon as every
+    group is a singleton (one host read a level) and the block tables
+    are sized from the data.
 
     With ``mesh`` (a :class:`csa_tpu_torch.parallel.sharded.Mesh`) whose
     rank count is a power of two, the build and the collect front run
@@ -484,6 +768,66 @@ def rotation_final(encoded: Sequence[np.ndarray], device, *,
     return _slim(*res)
 
 
+def _linear_refine(rank, real, n, t: int):
+    """One linear doubling level (``rank2 = -1`` past the end): the
+    order, the dense rank (pads keep ``total + g``) and whether a tie
+    remains, as a device bool."""
+    total = rank.shape[0]
+    g = torch.arange(total, device=rank.device)
+    pos2 = g + (1 << t)
+    rank2 = torch.where(real & (pos2 < n), rank[pos2.clamp(max=total - 1)],
+                        -1)
+    # ranks < 2*total and rank2 in [-1, total): (rank, rank2 + 1) packs
+    # into one int64 key with span 2*total + 1
+    order = _stable_sort2(rank, rank2 + 1, 2 * total + 1)
+    r1s, r2s = rank[order], rank2[order]
+    samegrp = (r1s[1:] == r1s[:-1]) & (r2s[1:] == r2s[:-1])
+    dense = torch.cumsum(torch.cat([samegrp.new_zeros(1),
+                                    ~samegrp]).to(torch.int64), 0)
+    rank = torch.empty_like(dense)
+    rank[order] = dense
+    return order, torch.where(real, rank, total + g), samegrp.any()
+
+
+def _linear_lcp(order, stack, n, levels: int):
+    """(total,) adjacent LCPs by binary descent over the rank levels;
+    levels past the stack's last row use its last (final) rank."""
+    total = order.shape[0]
+    a, b = order[:-1], order[1:]
+    off = torch.zeros_like(a)
+    for tt in range(levels - 1, -1, -1):
+        rk = stack[min(tt, len(stack) - 1)]
+        ga, gb = a + off, b + off
+        ok = (ga < n) & (gb < n)
+        eq = ok & (rk[ga.clamp(max=total - 1)] == rk[gb.clamp(max=total - 1)])
+        off = torch.where(eq, off + (1 << tt), off)
+    return torch.cat([off.new_zeros(1), off])
+
+
+def _linear_start(s, n):
+    total = s.shape[0]
+    g = torch.arange(total, device=s.device)
+    real = g < n
+    rank = torch.where(real, s, total + g)
+    return rank, real, torch.sort(rank, stable=True).indices
+
+
+def _linear_fused_program(s, n, *, levels: int, steps: int) -> torch.Tensor:
+    """Twin of csa_tpu's ``_linear_index_device_et`` with the level loop
+    unrolled to ``steps`` refinements (at least one, as the while_loop
+    runs): ``s`` (total,) int64 codes, ``n`` the real length as a 0-d
+    tensor.  Returns int32 ``[tied, sa(total), lcp(total)]``; ``tied``
+    set means ``steps`` was too few."""
+    rank, real, order = _linear_start(s, n)
+    stack = [rank]
+    for t in range(steps):
+        order, rank, tied = _linear_refine(rank, real, n, t)
+        stack.append(rank)
+    lcp = _linear_lcp(order, stack, n, levels)
+    return torch.cat([tied.reshape(1).to(torch.int64), order,
+                      lcp]).to(torch.int32)
+
+
 def linear_suffix_order(s_real: np.ndarray, device):
     """Suffix sort of ONE linear string (separators encoded below the
     characters): returns host (sa, lcp) over the real entries, the
@@ -493,44 +837,44 @@ def linear_suffix_order(s_real: np.ndarray, device):
     of the string, ended when every group is a singleton (the loop of
     ``_linear_index_device_et``); rank levels past the last realized one
     hold the final all-unique rank, so their LCP steps are no-ops exactly
-    as in the JAX program."""
+    as in the JAX program.  Up to :data:`FUSED_MAX_CHARS` padded
+    characters the whole sort is one fused program (a CUDA graph on a
+    card) with a cached refinement count, retried larger while ties
+    remain; above it the host reads one flag a level."""
     device = torch.device(device)
     n = len(s_real)
     total = _bucket(max(n, 8))
     levels = _linear_levels(total)
     s = np.zeros(total, dtype=np.int64)
     s[:n] = s_real
-    g = torch.arange(total, device=device)
-    real = g < n
-    rank = torch.where(real, torch.from_numpy(s).to(device), total + g)
-    _, order = torch.sort(rank, stable=True)
+    s_t = torch.from_numpy(s)
+    if total <= FUSED_MAX_CHARS:
+        bound = levels - 1
+        steps = _LINEAR_LEVELS_CACHE.get(total, min(LINEAR_LEVELS_START,
+                                                    bound))
+        while True:
+            with PROFILER.phase("idx.fused"):
+                arr = graphs.run(
+                    ("linear", total, steps),
+                    functools.partial(_linear_fused_program, levels=levels,
+                                      steps=steps),
+                    (s_t, torch.tensor(n, dtype=torch.int64)), device)
+            if arr[0] and steps < bound:
+                steps = min(bound, steps + LEVELS_STEP)
+                continue
+            _LINEAR_LEVELS_CACHE[total] = steps
+            break
+        sa = arr[1:total + 1].astype(np.int64)
+        lcp = arr[total + 1:].astype(np.int64)
+        return sa[:n], lcp[:n]
+    rank, real, order = _linear_start(s_t.to(device), n)
     stack = [rank]
     t = 0
     tied = True
-    # ranks < 2*total and rank2 in [-1, total): (rank, rank2 + 1) packs
-    # into one int64 key with span 2*total + 1
     while tied and t < levels - 1:
-        pos2 = g + (1 << t)
-        rank2 = torch.where(real & (pos2 < n),
-                            rank[pos2.clamp(max=total - 1)], -1)
-        order = _stable_sort2(rank, rank2 + 1, 2 * total + 1)
-        r1s, r2s = rank[order], rank2[order]
-        samegrp = (r1s[1:] == r1s[:-1]) & (r2s[1:] == r2s[:-1])
-        tied = bool(samegrp.any())
-        dense = torch.cumsum(torch.cat([samegrp.new_zeros(1),
-                                        ~samegrp]).to(torch.int64), 0)
-        rank = torch.empty_like(dense)
-        rank[order] = dense
-        rank = torch.where(real, rank, total + g)
+        order, rank, tied_t = _linear_refine(rank, real, n, t)
+        tied = bool(tied_t)
         stack.append(rank)
         t += 1
-    a, b = order[:-1], order[1:]
-    off = torch.zeros_like(a)
-    for tt in range(levels - 1, -1, -1):
-        rk = stack[min(tt, len(stack) - 1)]
-        ga, gb = a + off, b + off
-        ok = (ga < n) & (gb < n)
-        eq = ok & (rk[ga.clamp(max=total - 1)] == rk[gb.clamp(max=total - 1)])
-        off = torch.where(eq, off + (1 << tt), off)
-    lcp = torch.cat([off.new_zeros(1), off])
+    lcp = _linear_lcp(order, stack, n, levels)
     return order[:n].cpu().numpy(), lcp[:n].cpu().numpy()

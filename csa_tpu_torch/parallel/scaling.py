@@ -1,7 +1,8 @@
 """Rank-count scaling of the sharded rotation block stage (counterpart of
 :mod:`csa_tpu.parallel.scaling`).
 
-:func:`measure` runs the block stage (``engine.rotation_final``) on a
+:func:`measure` runs the staged block stage
+(``engine.rotation_final_staged``, the stage the ranks shard) on a
 synthetic circular set at 1, 2, 4 and 8 ranks laid out as the CLI's
 ``--backend sharded`` lays them: round-robin over the visible cards for
 ``device="cuda"`` (the default; ranks that share a card get a stream
@@ -99,7 +100,8 @@ def measure(k: int = 8, n: int = 100_000, ranks=(1, 2, 4, 8), reps: int = 2,
     meshes = {d: make_mesh(d, (d, 1), devices=cards) for d in ranks}
 
     def stage(mesh):
-        return engine.rotation_final(enc, device, pack_w=pack_w, mesh=mesh)
+        return engine.rotation_final_staged(enc, device, pack_w=pack_w,
+                                            mesh=mesh)
 
     ref = stage(None)   # also the warm-up
     if ref is None:

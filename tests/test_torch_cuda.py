@@ -453,3 +453,82 @@ def test_set3_merge_gate_above_every_merge_matches_default(cuda, tmp_path,
     assert out["above"] == out["default"]
     assert out["default"][0] == (fix / "Set3-Rotated.fasta").read_bytes()
 
+
+def _fixture_encoded(name):
+    import io
+    import pathlib
+
+    from csa_tpu_torch.io import fasta as tfio
+
+    fix = pathlib.Path(__file__).resolve().parent / "fixtures"
+    seqs = tfio.load_fasta(str(fix / f"{name}.txt"), log=io.StringIO())
+    return seqs.encoded_all()
+
+
+def _same_final(got, want):
+    assert (got.num_collected, got.num_after_suffix) == \
+        (want.num_collected, want.num_after_suffix)
+    for f in ("final_start", "final_depth", "final_positions"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["Primates", "Set3"])
+def test_fused_block_stage_replay_matches_staged(cuda, name):
+    """The fused block stage as a CUDA graph replay equals the eager
+    staged stage; a second call with the same key replays the cached
+    graph without capturing again, and each replay launches mscan three
+    times."""
+    from csa_tpu_torch.index import graphs
+
+    enc = _fixture_encoded(name)
+    want = engine.rotation_final_staged(enc, cuda)
+    _same_final(engine._rotation_final_fused(enc, cuda), want)
+    captures, replays = graphs.STATS["captures"], graphs.STATS["replays"]
+    kernels.reset_counts()
+    _same_final(engine._rotation_final_fused(enc, cuda), want)
+    assert graphs.STATS["captures"] == captures
+    assert graphs.STATS["replays"] == replays + 1
+    assert kernels.COUNTS["mscan"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fused_linear_sort_replay_matches_staged(cuda, seed, monkeypatch):
+    rng = np.random.default_rng(seed)
+    parts = []
+    for i in range(4):
+        parts += [rng.integers(0, 4, size=int(rng.integers(20_000, 40_000)))
+                  + 4, [i]]
+    s = np.concatenate(parts).astype(np.int64)
+    monkeypatch.setattr(engine, "FUSED_MAX_CHARS", 1 << 62)
+    got = [engine.linear_suffix_order(s, cuda) for _ in range(2)]
+    monkeypatch.setattr(engine, "FUSED_MAX_CHARS", 0)
+    want = engine.linear_suffix_order(s, cuda)
+    for sa, lcp in got:
+        np.testing.assert_array_equal(sa, want[0])
+        np.testing.assert_array_equal(lcp, want[1])
+
+
+@pytest.mark.cuda
+def test_failing_capture_raises(cuda):
+    """A program that reads the host while it is being captured raises
+    (no eager fallback) and leaves no graph behind; the fused route
+    still replays afterwards."""
+    from csa_tpu_torch.index import graphs
+
+    calls = []
+
+    def program(x):
+        calls.append(1)
+        if len(calls) == 2:   # the capture, after an eager warm-up
+            x.sum().item()
+        return x * 2
+
+    key = ("host-read-in-capture",)
+    with pytest.raises(RuntimeError):
+        graphs.run(key, program, (torch.ones(8, dtype=torch.int64),), cuda)
+    assert not any(k[1] == key for k in graphs._CACHE)
+    enc = _fixture_encoded("Primates")
+    _same_final(engine._rotation_final_fused(enc, cuda),
+                engine.rotation_final_staged(enc, cuda))
