@@ -109,7 +109,12 @@ Phases, one JSON line each on stdout:
                 read just after) and its wall.  With 2 or more cards the
                 same over NCCL, a card a process (2 and, with 4 cards, 4
                 processes); on one card a line says that leg was not run.
-                The one-card legs run on card 0 on any machine.
+                The one-card legs run on card 0 on any machine.  Then the
+                teardown loop: 12 two-process worlds on card 0 over gloo,
+                3 to a pair of processes, each running every Ranks
+                exchange on CUDA ranks against one process and ending
+                with shutdown(); every process must exit 0 and no world
+                may abort (with 2 or more cards, 4 worlds over NCCL too);
  15. fused:     the fused routes (the block stage and the anchors'
                 linear sort, one CUDA graph replay and one download a
                 call, below FUSED_MAX_CHARS): Primates and Set3 through
@@ -1882,7 +1887,25 @@ def _dryrun(distributed, n, per, backend, visible=None):
     return res
 
 
-def phase_distributed(distributed, tools_files):
+def _teardown_loop(teardown, worlds, backend, visible):
+    """``worlds`` two-process worlds of every Ranks exchange on CUDA
+    ranks, 3 to a pair of processes: no abort, every process exits 0,
+    every world agrees with one process and frees its group."""
+    res = teardown.run_teardown_loop(worlds, device="cuda",
+                                     worlds_per_process=3, timeout=600,
+                                     visible=visible)
+    bad = res["aborted_worlds"] or res["failed_worlds"]
+    check(not bad, f"distributed: {res['aborts']} aborted and "
+          f"{res['failed']} failed of {worlds} {backend} teardown worlds; "
+          f"the first: {res['records'][bad[0]] if bad else None}")
+    check(all(r["backend"] == backend and r["group_freed"]
+              for r in res["records"]),
+          f"distributed: a teardown world was not {backend} or kept its "
+          "group")
+    return res
+
+
+def phase_distributed(distributed, teardown, tools_files):
     import torch
 
     # the one-card legs on card 0 whatever the machine holds
@@ -1891,6 +1914,7 @@ def phase_distributed(distributed, tools_files):
            "single": _cli_leg(distributed, tools_files, 1, None, ["0"]),
            "gloo_2": _cli_leg(distributed, tools_files, 2, "gloo",
                               ["0", "0"])}
+    loops = {"gloo": _teardown_loop(teardown, 12, "gloo", ["0", "0"])}
     cards = torch.cuda.device_count()
     for n in (2, 4):
         if n > cards:
@@ -1900,19 +1924,28 @@ def phase_distributed(distributed, tools_files):
             distributed, n, 8 // n, "nccl", visible)
         out[f"nccl_{n}"] = _cli_leg(distributed, tools_files, n, "nccl",
                                     visible)
-    if cards < 2:
+    if cards >= 2:
+        loops["nccl"] = _teardown_loop(teardown, 4, "nccl", ["0", "1"])
+    else:
         print("distributed: the NCCL leg was not run: one card is visible, "
               "and NCCL needs a card of its own for each process",
               flush=True)
     emit({"phase": "distributed", "cards": cards, "mesh": "8x1",
           "rotated_identical": True, "aligned_rows_identical": True,
-          **out})
+          **out, "teardown": loops})
+    out["teardown"] = loops
     return out
+
+
+def summary_teardown(out, teardown, card: str) -> None:
+    for backend, res in out["teardown"].items():
+        print(f"{teardown.summary_line(res)} backend={backend} "
+              f"card={card}", flush=True)
 
 
 def summary_distributed(out) -> None:
     dr = out["dryrun"]
-    legs = [k for k in out if k not in ("dryrun", "single")]
+    legs = [k for k in out if k not in ("dryrun", "single", "teardown")]
     walls = "; ".join(
         f"{name} single {out['single'][name]['cli_wall_s'][0]:.3f} s, "
         + ", ".join(f"{leg} " + "/".join(f"{w:.3f}" for w in
@@ -1959,7 +1992,7 @@ def main() -> int:
     from csa_tpu_torch.dp import band, nw, profile, seqpar
     from csa_tpu_torch.index import engine, graphs, mscan
     from csa_tpu_torch.io import fasta as fio
-    from csa_tpu_torch.parallel import distributed, scaling
+    from csa_tpu_torch.parallel import distributed, scaling, teardown
     from csa_tpu_torch.rotation import pipeline as rot
     from csa_tpu_torch.rotation import verification
     from csa_tpu_torch.tools import files as tools_files
@@ -1981,7 +2014,7 @@ def main() -> int:
                                       profile, walls)["band"]
     sharded_rot = phase_sharded_rotation(cli, rot, kernels, fio, scaling,
                                          mbp_native, mbp_single_s)
-    dist_out = phase_distributed(distributed, tools_files)
+    dist_out = phase_distributed(distributed, teardown, tools_files)
     fused = phase_fused(cli, engine, graphs, kernels, fio, tools_files)
     check("jax" not in sys.modules, "jax was imported")
     check("csa_tpu" not in sys.modules, "the JAX package was imported")
@@ -1995,10 +2028,12 @@ def main() -> int:
         "band": ("csa_tpu_torch/csrc/band.cu",
                  "csa_tpu/dp/pallas_band.py:63"),
     }
-    print(smi_line())
+    card = smi_line()
+    print(card)
     summary(stats, launches)
     summary_sharded_rotation(sharded_rot)
     summary_distributed(dist_out)
+    summary_teardown(dist_out, teardown, card)
     summary_routing(routing)
     summary_fused(fused)
     emit({"kernels": [

@@ -335,9 +335,12 @@ def main(argv=None) -> int:
     from .parallel import distributed
 
     try:
-        return _run(args, mode)
-    finally:
-        distributed.shutdown()
+        rc = _run(args, mode)
+    except BaseException:
+        distributed.shutdown(wait=False)
+        raise
+    distributed.shutdown()
+    return rc
 
 
 def _run(args, mode: str) -> int:

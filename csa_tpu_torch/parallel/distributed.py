@@ -31,6 +31,10 @@ a second group:
 An NCCL failure raises: nothing retries over gloo, and nothing drops
 back to one process.  Every group has a finite timeout.
 
+:func:`shutdown` ends a world as ``jax.distributed.shutdown()`` does: it
+waits for every process at a barrier before anything is destroyed, and
+it frees the groups (joining their worker threads) before it returns.
+
 :func:`run_multiprocess_dryrun` proves the cross-process paths on one
 machine: it spawns N real OS processes, each driving its own ranks,
 forms the world over localhost, and runs the sharded rotation stage and
@@ -41,6 +45,7 @@ results.
 from __future__ import annotations
 
 import datetime
+import gc
 import json
 import os
 import socket
@@ -48,6 +53,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
@@ -58,13 +64,14 @@ import torch.distributed as dist
 DEFAULT_TIMEOUT_S = 600
 
 
-@dataclass(frozen=True)
+@dataclass(eq=False)
 class World:
-    """The processes of a multi-process run, as this process sees them."""
+    """The processes of a multi-process run, as this process sees them.
+    Meshes hold it; :func:`shutdown` lets go of ``group``."""
     rank: int            # this process
     size: int            # processes
     backend: str         # of the exchanges: "nccl" or "gloo"
-    group: object = field(compare=False)   # the group they run on
+    group: object = field(repr=False)   # the group they run on
 
 
 _WORLD: Optional[World] = None
@@ -137,12 +144,55 @@ def initialize(coordinator: Optional[str] = None,
     return True
 
 
-def shutdown() -> None:
-    """Tear the world down (every group); a no-op without one."""
+# the key each process other than the store's host sets once its groups
+# are gone
+_LEFT = "csa_tpu_torch/left/"
+
+
+def shutdown(wait: bool = True) -> None:
+    """Tear the world down; a no-op without one.
+
+    With ``wait``, every process meets the others at a barrier over the
+    world's gloo group (none is still in an exchange), and the store's
+    host, process 0, returns only once every other process has torn its
+    groups down.  The NCCL group goes before the world it rides on.
+    Either way every group is freed before this returns, which joins its
+    worker threads: ``destroy_process_group`` only unregisters a group,
+    and a gloo worker thread still alive when the interpreter finalises
+    aborts the process ("terminate called without an active exception")
+    as it drops a finished exchange's tensors.  A process that fails
+    passes ``wait=False``: its peers, stuck in an exchange it will not
+    join, see it leave at once instead of at their timeout."""
     global _WORLD
-    _WORLD = None
-    if dist.is_available() and dist.is_initialized():
-        dist.destroy_process_group()
+    world, _WORLD = _WORLD, None
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    rank, size = dist.get_rank(), dist.get_world_size()
+    store = dist.distributed_c10d._get_default_store() if wait else None
+    if wait:
+        if world is not None and world.backend == "nccl":
+            torch.cuda.synchronize()
+        dist.barrier()
+    groups = [weakref.ref(dist.group.WORLD)]
+    if world is not None:
+        group, world.group = world.group, None
+        if group is not dist.group.WORLD:
+            groups.append(weakref.ref(group))
+            dist.destroy_process_group(group)
+        del group
+    dist.destroy_process_group()
+    if any(g() is not None for g in groups):
+        gc.collect()       # a cycle (a traceback's frames) may hold one
+    if not wait:
+        return
+    if any(g() is not None for g in groups):
+        raise RuntimeError("shutdown: a process group outlives "
+                           "destroy_process_group (something still holds "
+                           "it), so its worker threads outlive it too")
+    if rank:
+        store.set(f"{_LEFT}{rank}", "1")
+    else:
+        store.wait([f"{_LEFT}{k}" for k in range(1, size)])
 
 
 def free_port() -> int:
@@ -327,9 +377,10 @@ def run_multiprocess_dryrun(n_processes: int = 2, ranks_per_process: int = 4,
     each on ``device``'s type, run the sharded rotation stage and the
     rank-split gap DP over the global mesh, and return process 0's
     result, with ``ok`` true when its three parities hold and every
-    process exited 0.  ``visible`` gives each process its
-    ``CUDA_VISIBLE_DEVICES`` (default: every process sees every card,
-    so processes that share a card take gloo).  A process that runs
+    process exited 0, and every process's ``exit_codes``.  ``visible``
+    gives each process its ``CUDA_VISIBLE_DEVICES`` (default: every
+    process sees every card, so processes that share a card take
+    gloo).  A process that runs
     over ``timeout`` seconds is killed and the result is not ok.
     ``device="cuda"`` without a CUDA device raises: the CPU runs only
     when asked for."""
@@ -359,10 +410,11 @@ def run_multiprocess_dryrun(n_processes: int = 2, ranks_per_process: int = 4,
         outs = run_processes(argvs, timeout=timeout, envs=envs)
     except TimeoutError as e:
         return {"ok": False, "error": str(e)}
+    rcs = [rc for rc, _, _ in outs]
     bad = [(pid, rc, err) for pid, (rc, _, err) in enumerate(outs) if rc]
     if bad:
         pid, rc, err = bad[0]
-        return {"ok": False,
+        return {"ok": False, "exit_codes": rcs,
                 "error": f"process {pid} exited {rc}: {err[-2000:]}"}
     for line in outs[0][1].splitlines():
         if line.startswith(RESULT_TAG):
@@ -370,8 +422,10 @@ def run_multiprocess_dryrun(n_processes: int = 2, ranks_per_process: int = 4,
             res["ok"] = bool(res["ladder_parity_cross_process"]
                              and res["parity_vs_single_process"]
                              and res["dp_parity_cross_process"])
+            res["exit_codes"] = rcs
             return res
-    return {"ok": False, "error": "no result line from process 0"}
+    return {"ok": False, "exit_codes": rcs,
+            "error": "no result line from process 0"}
 
 
 if __name__ == "__main__":

@@ -14,7 +14,7 @@ from csa_tpu_torch import kernels
 from csa_tpu_torch.dp import band, nw, profile, seqpar
 from csa_tpu_torch.index import engine, mscan
 from csa_tpu_torch.parallel import (collect_sharded, distributed, dsort,
-                                    dsort_ladder)
+                                    dsort_ladder, teardown)
 from csa_tpu_torch.parallel.sharded import make_mesh
 from torch_mscan_inputs import KINDS, mscan_input
 
@@ -424,6 +424,31 @@ def test_multiprocess_dryrun_over_nccl_a_card_a_process(cuda):
                                               visible=["0", "1"])
     assert res.get("ok"), res
     assert res["backend"] == "nccl"
+
+
+@pytest.mark.cuda
+def test_teardown_worlds_on_one_card_over_gloo(cuda):
+    """Four two-process worlds sharing card 0 (gloo), two to a pair of
+    processes: every Ranks exchange on CUDA ranks equals one process's,
+    each shutdown() frees its group, and every process exits 0."""
+    res = teardown.run_teardown_loop(4, device="cuda", worlds_per_process=2,
+                                     timeout=600, visible=["0", "0"])
+    assert (res["aborts"], res["failed"]) == (0, 0), res
+    assert all(r["backend"] == "gloo" and r["group_freed"]
+               for r in res["records"])
+
+
+@pytest.mark.cuda
+def test_teardown_worlds_over_nccl_a_card_a_process(cuda):
+    """The same over NCCL, a card a process: the NCCL group goes before
+    the gloo world it rides on."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards: NCCL takes a card of its own a process")
+    res = teardown.run_teardown_loop(4, device="cuda", worlds_per_process=2,
+                                     timeout=600, visible=["0", "1"])
+    assert (res["aborts"], res["failed"]) == (0, 0), res
+    assert all(r["backend"] == "nccl" and r["group_freed"]
+               for r in res["records"])
 
 
 @pytest.mark.cuda

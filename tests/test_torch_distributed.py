@@ -2,7 +2,11 @@
 the CPU over gloo: the flag and environment handling of ``initialize``
 (the counterparts of tests/test_distributed.py's first two tests), the
 split of a mesh over processes, every exchange of ``Ranks`` across two
-real processes against the single-process ``Ranks``, the three-legged
+real processes against the single-process ``Ranks``, the teardown
+(``shutdown`` waits for every process, frees the world's group and
+threads, lets the store's host leave last, waits for no one without a
+world or after a failure; ``ppermute`` waits on every P2P work), the
+three-legged
 dryrun (its ladder leg also against the JAX package's
 ``rotation_final_jax`` on its virtual mesh), its kill on a timeout, and
 the CLI run as 2 and 3 processes (each in its own directory) against
@@ -217,6 +221,168 @@ def test_ranks_exchanges_across_two_processes():
         assert res["counters"]["rank_exchange_bytes"] == single_bytes
         assert res["counters"]["rank_process_bytes"] > 0
         assert "rank_peer_copy_bytes" not in res["counters"]
+
+
+# -- teardown ---------------------------------------------------------------
+
+# a process of a teardown world: the exchanges over a mesh it keeps past
+# shutdown(), as the CLI's arguments and CHILD_RANKS keep theirs; process
+# 1 enters shutdown() a second late ("barrier") or takes a second longer
+# to destroy its groups ("host_last")
+CHILD_TEARDOWN = EXCHANGES + r"""
+import json, os, sys, time, weakref
+import torch.distributed as dist
+from csa_tpu_torch.parallel import distributed, sharded
+
+torch.set_num_threads(1)
+port, pid, case = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+threads = lambda: len(os.listdir("/proc/self/task"))
+exchanges(sharded.Ranks(sharded.make_mesh(4, (4, 1), devices=["cpu"])))
+before = threads()
+distributed.initialize(f"127.0.0.1:{port}", 2, pid, timeout=120)
+mesh = sharded.make_mesh(4, (4, 1), devices=["cpu"])
+exchanges(sharded.Ranks(mesh))
+group = weakref.ref(distributed.current().group)
+during = threads()
+stamps = {}
+destroy = dist.destroy_process_group
+
+
+def slow_destroy(*args, **kw):
+    if case == "host_last" and pid == 1:
+        time.sleep(1.0)
+    destroy(*args, **kw)
+    stamps["destroyed"] = time.time()
+
+
+dist.destroy_process_group = slow_destroy
+if case == "barrier" and pid == 1:
+    time.sleep(1.0)
+stamps["entered"] = time.time()
+distributed.shutdown()
+stamps["returned"] = time.time()
+print("TEARDOWN " + json.dumps({"before": before, "during": during,
+                                "after": threads(),
+                                "freed": group() is None, **stamps}),
+      flush=True)
+"""
+
+
+@pytest.mark.parametrize("case", ["threads", "barrier", "host_last"])
+def test_shutdown_waits_for_every_process_and_frees_the_world(case):
+    """shutdown() of two gloo processes that keep their mesh (and so the
+    world) past it: the world's group is freed and no thread it started
+    is left when shutdown() returns (a gloo worker thread that outlived
+    it aborted the process at interpreter exit); process 0 returns only
+    after process 1 has entered shutdown() (the barrier) and after it
+    has destroyed its groups (the store's host leaves last)."""
+    port = distributed.free_port()
+    outs = distributed.run_processes(
+        [[sys.executable, "-c", CHILD_TEARDOWN, str(port), str(pid), case]
+         for pid in range(2)], timeout=TIMEOUT, envs=[_env(), _env()])
+    for rc, _, err in outs:
+        assert rc == 0, err[-3000:]
+    got = [json.loads(next(l for l in out.splitlines()
+                           if l.startswith("TEARDOWN "))[9:])
+           for _, out, _ in outs]
+    for res in got:
+        assert res["freed"] is True
+        assert res["during"] > res["before"]
+        assert res["after"] == res["before"], res
+    if case == "barrier":
+        assert got[0]["returned"] >= got[1]["entered"]
+    if case == "host_last":
+        assert got[0]["returned"] >= got[1]["destroyed"]
+
+
+def test_shutdown_without_a_world_waits_for_no_one(monkeypatch):
+    """One process (no coordinator): shutdown() calls no barrier and
+    touches no store."""
+    def refuse(*args, **kw):
+        raise AssertionError("a barrier in a single-process run")
+
+    monkeypatch.setattr(torch.distributed, "barrier", refuse)
+    monkeypatch.setattr(distributed, "_WORLD", None)
+    assert not torch.distributed.is_initialized()
+    distributed.shutdown()
+    distributed.shutdown(wait=False)
+    assert distributed.current() is None
+
+
+@pytest.mark.parametrize("fails", [False, True], ids=["ok", "raises"])
+def test_cli_tears_down_without_waiting_only_when_it_fails(monkeypatch,
+                                                          fails):
+    """cli.main tears the world down on every way out: waiting for the
+    others when the run returned, without waiting when it raised (its
+    peers, stuck in an exchange it will not join, see it leave at
+    once)."""
+    calls = []
+
+    def run(args, mode):
+        if fails:
+            raise RuntimeError("run failed")
+        return 0
+
+    monkeypatch.setattr(cli, "_run", run)
+    monkeypatch.setattr(distributed, "shutdown",
+                        lambda wait=True: calls.append(wait))
+    if fails:
+        with pytest.raises(RuntimeError, match="run failed"):
+            cli.main(["t.txt", "--device", "cpu"])
+    else:
+        assert cli.main(["t.txt", "--device", "cpu"]) == 0
+    assert calls == [not fails]
+
+
+def test_ppermute_waits_on_every_p2p_work(monkeypatch):
+    """Across processes ppermute returns only after every work that
+    batch_isend_irecv gave it has been waited on (a send may complete
+    on its side before the peer has read it)."""
+    works = []
+
+    class Work:
+        def __init__(self, op):
+            self.op, self.waited = op, False
+
+        def wait(self):
+            if self.op.op is torch.distributed.irecv:
+                self.op.tensor.fill_(7)
+            self.waited = True
+            return True
+
+    def batch(ops):
+        works.extend(Work(op) for op in ops)
+        return works[-len(ops):]
+
+    class P2POp:
+        def __init__(self, op, tensor, peer, group=None, tag=0):
+            self.op, self.tensor = op, tensor
+
+    monkeypatch.setattr(distributed, "_WORLD",
+                        distributed.World(0, 2, "gloo", None))
+    monkeypatch.setattr(torch.distributed, "batch_isend_irecv", batch)
+    monkeypatch.setattr(torch.distributed, "P2POp", P2POp)
+    ranks = sharded.Ranks(sharded.make_mesh(4, (4, 1), devices=[CPU]))
+    xs = [torch.arange(3), torch.arange(3) + 10, None, None]
+    out = ranks.ppermute(xs, [(i, (i + 1) % 4) for i in range(4)])
+    assert len(works) == 2          # rank 1 -> 2 sent, 3 -> 0 received
+    assert all(w.waited for w in works)
+    assert out[0].tolist() == [7, 7, 7]
+    assert out[1].tolist() == [0, 1, 2]      # rank 0 -> 1 in place
+    assert out[2] is None and out[3] is None
+
+
+def test_teardown_exchanges_equal_the_two_process_test_set():
+    """The teardown loop's exchange set (csa_tpu_torch.parallel.teardown)
+    is this file's EXCHANGES: the same results on one process's 4 CPU
+    ranks."""
+    from csa_tpu_torch.parallel import teardown
+
+    ns = {}
+    exec(EXCHANGES, ns)
+    mesh = sharded.make_mesh(4, (4, 1), devices=[CPU])
+    assert teardown.exchanges(sharded.Ranks(mesh)) == \
+        ns["exchanges"](sharded.Ranks(mesh))
 
 
 # -- the dryrun -------------------------------------------------------------
