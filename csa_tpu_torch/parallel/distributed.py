@@ -144,18 +144,12 @@ def initialize(coordinator: Optional[str] = None,
     return True
 
 
-# the key each process other than the store's host sets once its groups
-# are gone
-_LEFT = "csa_tpu_torch/left/"
-
-
 def shutdown(wait: bool = True) -> None:
     """Tear the world down; a no-op without one.
 
     With ``wait``, every process meets the others at a barrier over the
-    world's gloo group (none is still in an exchange), and the store's
-    host, process 0, returns only once every other process has torn its
-    groups down.  The NCCL group goes before the world it rides on.
+    world's gloo group before anything is destroyed (none is still in an
+    exchange).  The NCCL group goes before the world it rides on.
     Either way every group is freed before this returns, which joins its
     worker threads: ``destroy_process_group`` only unregisters a group,
     and a gloo worker thread still alive when the interpreter finalises
@@ -167,8 +161,6 @@ def shutdown(wait: bool = True) -> None:
     world, _WORLD = _WORLD, None
     if not (dist.is_available() and dist.is_initialized()):
         return
-    rank, size = dist.get_rank(), dist.get_world_size()
-    store = dist.distributed_c10d._get_default_store() if wait else None
     if wait:
         if world is not None and world.backend == "nccl":
             torch.cuda.synchronize()
@@ -183,16 +175,10 @@ def shutdown(wait: bool = True) -> None:
     dist.destroy_process_group()
     if any(g() is not None for g in groups):
         gc.collect()       # a cycle (a traceback's frames) may hold one
-    if not wait:
-        return
-    if any(g() is not None for g in groups):
+    if wait and any(g() is not None for g in groups):
         raise RuntimeError("shutdown: a process group outlives "
                            "destroy_process_group (something still holds "
                            "it), so its worker threads outlive it too")
-    if rank:
-        store.set(f"{_LEFT}{rank}", "1")
-    else:
-        store.wait([f"{_LEFT}{k}" for k in range(1, size)])
 
 
 def free_port() -> int:

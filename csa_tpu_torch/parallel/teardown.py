@@ -1,35 +1,25 @@
 """The teardown loop: two-process worlds formed and torn down one after
 another, counting the processes that abort.
 
-A world is two processes on this machine, started together, that end
-with :func:`.distributed.shutdown`.  Three kinds of world:
+A pair of processes on this machine forms ``worlds_per_process`` worlds
+in turn (a new port each).  In each it runs every exchange of
+:class:`.sharded.Ranks` over a mesh of 4 ranks (2 a process), which
+must equal the single-process ``Ranks`` on the same seeded tensors, then
+:func:`.distributed.shutdown`, holding the mesh until it exits, as a
+script's module-level names are: a world that a mesh still holds is the
+case that used to abort at exit.  A world is aborted when one of its
+processes died of a signal, and failed when one exited non-zero or ran
+over its deadline, or its check did not hold::
 
-* ``ranks``: each process forms ``worlds_per_process`` worlds in turn
-  (a new port each), and in each runs every exchange of
-  :class:`.sharded.Ranks` over a mesh of 4 ranks (2 a process), which
-  must equal the single-process ``Ranks`` on the same seeded tensors,
-  then ``shutdown()``, holding the mesh until it exits; it reports, a
-  world, the time ``shutdown()`` took, whether the world's group was
-  freed and how many OS threads outlived it;
-* ``dryrun``: :func:`.distributed.run_multiprocess_dryrun` of 2 x 2
-  ranks;
-* ``cli``: the CLI in mode N as 2 processes at ``--backend sharded
-  --mesh 4x1`` on a seeded set, each in a directory of its own, both
-  writing the same output.
-
-A world is aborted when one of its processes died of a signal, and
-failed when one exited non-zero or ran over its deadline, or its check
-did not hold.  ``busy`` processes spin on the CPU for the whole loop,
-as the other workers of a loaded test run would::
-
-    python -m csa_tpu_torch.parallel.teardown --device cpu --worlds 100 \\
-        --busy 6
-    python -m csa_tpu_torch.parallel.teardown --kind dryrun --device cpu
     python -m csa_tpu_torch.parallel.teardown --worlds 12 \\
         --worlds-per-process 3          # on the card, gloo sharing it
+    python -m csa_tpu_torch.parallel.teardown --device cpu --worlds 100
 
 The last line is the summary ``summary teardown worlds=<n> aborts=<m>
-wall_s=<s> ...``; ``--out`` writes the whole result as JSON.
+wall_s=<s> ...``, with the medians of a pair's wall broken down: the
+processes' start (spawn to the later one's first statement), a world's
+``initialize``, exchanges and ``shutdown()`` a process, and the exit
+(the later process's last statement to both reaped).
 """
 
 from __future__ import annotations
@@ -37,9 +27,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
-import tempfile
 import time
 from typing import List, Optional, Sequence
 
@@ -49,10 +37,8 @@ from . import distributed
 
 _CHILD_FLAG = "--_csa-teardown-child"
 WORLD_TAG = "CSA_TEARDOWN_WORLD "
-BUSY = "while True: pass"
-# a ranks child's meshes, held until its interpreter exits, as a
-# script's module-level names are: a world a mesh still holds is the
-# case that used to abort at exit
+END_TAG = "CSA_TEARDOWN_END "
+# a child's meshes, held until its interpreter exits
 _HELD: list = []
 
 
@@ -114,8 +100,9 @@ def _threads() -> Optional[int]:
 
 
 def _child_main(argv) -> int:
-    """One process of a run of ``ranks`` worlds: one world a port, each
-    ending with shutdown() while this process still holds its mesh."""
+    """One process of a pair: one world a port, each ending with
+    shutdown() while this process still holds its mesh."""
+    began = time.time()
     import weakref
 
     from ..utils import PROFILER
@@ -129,43 +116,32 @@ def _child_main(argv) -> int:
     devices = [device] if device.type == "cpu" else None
     for port in ports:
         before = _threads()
+        t0 = time.perf_counter()
         distributed.initialize(f"127.0.0.1:{port}", 2, pid, device=device,
                                timeout=timeout)
         world = distributed.current()
         PROFILER.reset()
         PROFILER.enabled = True
+        t1 = time.perf_counter()
         mesh = sharded.make_mesh(4, (4, 1), devices=devices)
         _HELD.append(mesh)
         got = exchanges(sharded.Ranks(mesh))
         moved = PROFILER.counters.get("rank_process_bytes", 0)
         group = weakref.ref(world.group)
-        t0 = time.perf_counter()
+        t2 = time.perf_counter()
         distributed.shutdown()
-        shutdown_ms = (time.perf_counter() - t0) * 1e3
+        t3 = time.perf_counter()
         after = _threads()
         print(WORLD_TAG + json.dumps({
             "exchanges": got, "local": list(mesh.local),
             "rank_process_bytes": moved, "backend": world.backend,
-            "shutdown_ms": shutdown_ms, "group_freed": group() is None,
+            "init_ms": (t1 - t0) * 1e3, "exchange_ms": (t2 - t1) * 1e3,
+            "shutdown_ms": (t3 - t2) * 1e3, "group_freed": group() is None,
             "threads_left": None if before is None else after - before}),
             flush=True)
+    print(END_TAG + json.dumps({"began": began, "ended": time.time()}),
+          flush=True)
     return 0
-
-
-def _family_fasta(seed: int = 1, k: int = 6, n: int = 360) -> str:
-    """k rotated, mutated copies of one random sequence, as FASTA."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    base = rng.integers(0, 4, size=n)
-    letters = np.frombuffer(b"ACGT", dtype=np.uint8)
-    rows = []
-    for i in range(k):
-        row = np.roll(base, int(rng.integers(0, n))).copy()
-        idx = rng.integers(0, n, size=n // 40)
-        row[idx] = rng.integers(0, 4, size=len(idx))
-        rows.append(f">s{i}\n{letters[row].tobytes().decode()}\n")
-    return "".join(rows)
 
 
 def _env(root: str) -> dict:
@@ -178,10 +154,10 @@ def _env(root: str) -> dict:
     return env
 
 
-def _ranks_pair(root, n_worlds, device, timeout, visible,
-                want) -> List[dict]:
-    """One pair of processes forming ``n_worlds`` worlds of ``ranks``,
-    each process's exchanges held to ``want``."""
+def _pair(root, n_worlds, device, timeout, visible, want) -> List[dict]:
+    """One pair of processes forming ``n_worlds`` worlds, each
+    process's exchanges held to ``want``; the pair's start and exit
+    (seconds) go on its first world's record."""
     ports = set()
     while len(ports) < n_worlds:
         ports.add(str(distributed.free_port()))
@@ -193,13 +169,20 @@ def _ranks_pair(root, n_worlds, device, timeout, visible,
     for pid, env in enumerate(envs):
         if visible is not None:
             env["CUDA_VISIBLE_DEVICES"] = visible[pid]
+    spawned = time.time()
     try:
         outs = distributed.run_processes(argvs, timeout=timeout, envs=envs)
     except TimeoutError as e:
         return [{"exit_codes": None, "ok": False, "error": str(e)}
                 for _ in range(n_worlds)]
-    seen = [[json.loads(l[len(WORLD_TAG):]) for l in out.splitlines()
-             if l.startswith(WORLD_TAG)] for _, out, _ in outs]
+    reaped = time.time()
+
+    def tagged(out, tag):
+        return [json.loads(l[len(tag):]) for l in out.splitlines()
+                if l.startswith(tag)]
+
+    seen = [tagged(out, WORLD_TAG) for _, out, _ in outs]
+    ends = [e for _, out, _ in outs for e in tagged(out, END_TAG)]
     rcs = [rc for rc, _, _ in outs]
     worlds = []
     for k in range(n_worlds):
@@ -210,124 +193,75 @@ def _ranks_pair(root, n_worlds, device, timeout, visible,
                 _agrees(m["exchanges"], want, m["local"])
                 and m["rank_process_bytes"] > 0 for m in mine),
             "backend": mine[0]["backend"] if mine else None,
-            "shutdown_ms": [m["shutdown_ms"] for m in mine],
+            **{key: [m[key] for m in mine] for key in
+               ("init_ms", "exchange_ms", "shutdown_ms", "threads_left")},
             "group_freed": all(m["group_freed"] for m in mine),
-            "threads_left": [m["threads_left"] for m in mine],
             "error": "; ".join(err[-1500:] for rc, _, err in outs if rc)})
+    if len(ends) == 2:
+        worlds[0]["start_s"] = max(e["began"] for e in ends) - spawned
+        worlds[0]["exit_s"] = reaped - max(e["ended"] for e in ends)
     return worlds
 
 
-def _dryrun_world(device, timeout) -> dict:
-    res = distributed.run_multiprocess_dryrun(2, 2, device, timeout=timeout)
-    return {"exit_codes": res.get("exit_codes"), "ok": bool(res.get("ok")),
-            "error": res.get("error", "")}
-
-
-def _cli_world(root, device, timeout) -> dict:
-    port = distributed.free_port()
-    with tempfile.TemporaryDirectory() as tmp:
-        argvs, cwds = [], []
-        for pid in range(2):
-            d = os.path.join(tmp, f"p{pid}")
-            os.mkdir(d)
-            with open(os.path.join(d, "family.txt"), "w") as f:
-                f.write(_family_fasta())
-            argvs.append([sys.executable, "-m", "csa_tpu_torch.cli",
-                          "family.txt", "--device", device, "--backend",
-                          "sharded", "--mesh", "4x1", "--coordinator",
-                          f"127.0.0.1:{port}", "--num-processes", "2",
-                          "--process-id", str(pid)])
-            cwds.append(d)
-        try:
-            outs = distributed.run_processes(argvs, timeout=timeout,
-                                             cwds=cwds,
-                                             envs=[_env(root)] * 2)
-        except TimeoutError as e:
-            return {"exit_codes": None, "ok": False, "error": str(e)}
-        rcs = [rc for rc, _, _ in outs]
-        files = []
-        for d in cwds:
-            try:
-                files.append([open(os.path.join(d, f"family-{s}.fasta"),
-                                   "rb").read()
-                              for s in ("Rotated", "Aligned")])
-            except OSError:
-                files.append(None)
-    return {"exit_codes": rcs,
-            "ok": not any(rcs) and files[0] is not None
-            and files[0] == files[1],
-            "error": "; ".join(err[-1500:] for rc, _, err in outs if rc)}
-
-
-def run_teardown_loop(worlds: int = 10, *, kind: str = "ranks",
-                      device: str = "cuda", worlds_per_process: int = 1,
-                      busy: int = 0, timeout: float = 300,
+def run_teardown_loop(worlds: int = 10, *, device: str = "cuda",
+                      worlds_per_process: int = 1, timeout: float = 300,
                       visible: Optional[Sequence[str]] = None) -> dict:
-    """Form and tear down ``worlds`` two-process worlds of ``kind`` on
-    ``device``'s type, one after another, with ``busy`` processes
-    spinning on the CPU meanwhile; ``ranks`` worlds come
-    ``worlds_per_process`` to a pair of processes.  Returns the counts
-    (``aborts``: worlds in which a process died of a signal; ``failed``:
-    worlds with any non-zero exit, a deadline run over or a check that
-    did not hold) and every world's record.  ``visible`` gives each
-    process of a ``ranks`` world its ``CUDA_VISIBLE_DEVICES`` (default:
-    both see every card, so they share one over gloo).
+    """Form and tear down ``worlds`` two-process worlds on ``device``'s
+    type, one after another, ``worlds_per_process`` to a pair of
+    processes.  Returns the counts (``aborts``: worlds in which a
+    process died of a signal; ``failed``: worlds with any non-zero exit,
+    a deadline run over or a check that did not hold) and every world's
+    record.  ``visible`` gives each process its ``CUDA_VISIBLE_DEVICES``
+    (default: both see every card, so they share one over gloo).
     ``device="cuda"`` without a CUDA device raises."""
-    if kind not in ("ranks", "dryrun", "cli"):
-        raise ValueError(f"unknown kind of world: {kind}")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_teardown_loop: no CUDA device is available "
                            "(pass device='cpu' to run on the CPU)")
+    from . import sharded
+
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    if kind == "ranks":
-        from . import sharded
-
-        # one process's exchanges on 4 CPU ranks (host values: the same
-        # on any device)
-        want = exchanges(sharded.Ranks(sharded.make_mesh(
-            4, (4, 1), devices=[torch.device("cpu")])))
-    hogs = [subprocess.Popen([sys.executable, "-c", BUSY])
-            for _ in range(busy)]
+    # one process's exchanges on 4 CPU ranks (host values: the same on
+    # any device)
+    want = exchanges(sharded.Ranks(sharded.make_mesh(
+        4, (4, 1), devices=[torch.device("cpu")])))
     records = []
     t0 = time.perf_counter()
-    try:
-        while len(records) < worlds:
-            t = time.perf_counter()
-            if kind == "ranks":
-                n = min(worlds_per_process, worlds - len(records))
-                got = _ranks_pair(root, n, device, timeout, visible, want)
-            elif kind == "dryrun":
-                got = [_dryrun_world(device, timeout)]
-            else:
-                got = [_cli_world(root, device, timeout)]
-            for rec in got:
-                rec["wall_s"] = (time.perf_counter() - t) / len(got)
-            records += got
-    finally:
-        for h in hogs:
-            h.kill()
-            h.wait()
+    while len(records) < worlds:
+        t = time.perf_counter()
+        n = min(worlds_per_process, worlds - len(records))
+        got = _pair(root, n, device, timeout, visible, want)
+        for rec in got:
+            rec["wall_s"] = (time.perf_counter() - t) / len(got)
+        records += got
     wall = time.perf_counter() - t0
     aborted = [k for k, r in enumerate(records)
                if r["exit_codes"] and any(rc < 0 for rc in r["exit_codes"])]
     failed = [k for k, r in enumerate(records)
               if not r["ok"] or not r["exit_codes"] or any(r["exit_codes"])]
-    return {"kind": kind, "device": device, "worlds": len(records),
-            "busy": busy, "aborts": len(aborted), "failed": len(failed),
-            "aborted_worlds": aborted, "failed_worlds": failed,
-            "wall_s": wall, "records": records}
+    return {"device": device, "worlds": len(records), "aborts": len(aborted),
+            "failed": len(failed), "aborted_worlds": aborted,
+            "failed_worlds": failed, "wall_s": wall, "records": records}
+
+
+def _median(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
 
 
 def summary_line(res: dict) -> str:
-    """``summary teardown worlds=<n> aborts=<m> wall_s=<s> ...``."""
+    """``summary teardown worlds=<n> aborts=<m> wall_s=<s> ...``, with
+    the medians of the breakdown where the worlds recorded it."""
     line = (f"summary teardown worlds={res['worlds']} aborts={res['aborts']}"
             f" wall_s={res['wall_s']:.3f} failed={res['failed']} "
-            f"kind={res['kind']} device={res['device']} busy={res['busy']}")
-    ms = sorted(m for r in res["records"] for m in r.get("shutdown_ms", []))
-    if ms:
-        line += (f" shutdown_ms_median={ms[len(ms) // 2]:.3f} "
-                 f"shutdown_ms_max={ms[-1]:.3f}")
+            f"device={res['device']}")
+    for key in ("start_s", "init_ms", "exchange_ms", "shutdown_ms",
+                "exit_s"):
+        xs = [x for r in res["records"] for x in
+              (r[key] if isinstance(r.get(key), list) else [r.get(key)])
+              if x is not None]
+        if xs:
+            line += f" {key}_median={_median(xs):.3f}"
     left = [t for r in res["records"] for t in r.get("threads_left", [])
             if t is not None]
     if left:
@@ -346,22 +280,11 @@ if __name__ == "__main__":
         description="form and tear down two-process worlds, counting "
                     "aborts")
     parser.add_argument("--worlds", type=int, default=10)
-    parser.add_argument("--kind", choices=("ranks", "dryrun", "cli"),
-                        default="ranks")
     parser.add_argument("--device", default="cuda",
                         help="torch device type of the ranks (default cuda)")
     parser.add_argument("--worlds-per-process", type=int, default=1)
-    parser.add_argument("--busy", type=int, default=0,
-                        help="processes spinning on the CPU meanwhile")
-    parser.add_argument("--timeout", type=float, default=300)
-    parser.add_argument("--out", help="write the whole result here (JSON)")
     a = parser.parse_args()
     result = _self.run_teardown_loop(
-        a.worlds, kind=a.kind, device=a.device,
-        worlds_per_process=a.worlds_per_process, busy=a.busy,
-        timeout=a.timeout)
-    if a.out:
-        with open(a.out, "w") as f:
-            json.dump(result, f, indent=1)
+        a.worlds, device=a.device, worlds_per_process=a.worlds_per_process)
     print(_self.summary_line(result), flush=True)
     sys.exit(0 if result["aborts"] == 0 and result["failed"] == 0 else 1)

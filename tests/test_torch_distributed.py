@@ -3,11 +3,10 @@ the CPU over gloo: the flag and environment handling of ``initialize``
 (the counterparts of tests/test_distributed.py's first two tests), the
 split of a mesh over processes, every exchange of ``Ranks`` across two
 real processes against the single-process ``Ranks``, the teardown
-(``shutdown`` waits for every process, frees the world's group and
-threads, lets the store's host leave last, waits for no one without a
-world or after a failure; ``ppermute`` waits on every P2P work), the
-three-legged
-dryrun (its ladder leg also against the JAX package's
+(``shutdown`` waits for every process, destroys the NCCL group before
+the world, frees the world or raises, waits for no one without a world
+or after a failure; ``ppermute`` waits on every P2P work), the
+three-legged dryrun (its ladder leg also against the JAX package's
 ``rotation_final_jax`` on its virtual mesh), its kill on a timeout, and
 the CLI run as 2 and 3 processes (each in its own directory) against
 the single-process port, the fixtures and the JAX package's CLI,
@@ -227,72 +226,97 @@ def test_ranks_exchanges_across_two_processes():
 
 # a process of a teardown world: the exchanges over a mesh it keeps past
 # shutdown(), as the CLI's arguments and CHILD_RANKS keep theirs; process
-# 1 enters shutdown() a second late ("barrier") or takes a second longer
-# to destroy its groups ("host_last")
+# 1 enters shutdown() a second late
 CHILD_TEARDOWN = EXCHANGES + r"""
-import json, os, sys, time, weakref
-import torch.distributed as dist
+import json, sys, time
 from csa_tpu_torch.parallel import distributed, sharded
 
 torch.set_num_threads(1)
-port, pid, case = sys.argv[1], int(sys.argv[2]), sys.argv[3]
-threads = lambda: len(os.listdir("/proc/self/task"))
-exchanges(sharded.Ranks(sharded.make_mesh(4, (4, 1), devices=["cpu"])))
-before = threads()
+port, pid = sys.argv[1], int(sys.argv[2])
 distributed.initialize(f"127.0.0.1:{port}", 2, pid, timeout=120)
 mesh = sharded.make_mesh(4, (4, 1), devices=["cpu"])
 exchanges(sharded.Ranks(mesh))
-group = weakref.ref(distributed.current().group)
-during = threads()
-stamps = {}
-destroy = dist.destroy_process_group
-
-
-def slow_destroy(*args, **kw):
-    if case == "host_last" and pid == 1:
-        time.sleep(1.0)
-    destroy(*args, **kw)
-    stamps["destroyed"] = time.time()
-
-
-dist.destroy_process_group = slow_destroy
-if case == "barrier" and pid == 1:
+if pid == 1:
     time.sleep(1.0)
-stamps["entered"] = time.time()
+entered = time.time()
 distributed.shutdown()
-stamps["returned"] = time.time()
-print("TEARDOWN " + json.dumps({"before": before, "during": during,
-                                "after": threads(),
-                                "freed": group() is None, **stamps}),
-      flush=True)
+print("TEARDOWN " + json.dumps({"entered": entered,
+                                "returned": time.time()}), flush=True)
 """
 
 
-@pytest.mark.parametrize("case", ["threads", "barrier", "host_last"])
-def test_shutdown_waits_for_every_process_and_frees_the_world(case):
+def test_shutdown_waits_for_every_process_and_frees_the_world():
     """shutdown() of two gloo processes that keep their mesh (and so the
-    world) past it: the world's group is freed and no thread it started
-    is left when shutdown() returns (a gloo worker thread that outlived
-    it aborted the process at interpreter exit); process 0 returns only
-    after process 1 has entered shutdown() (the barrier) and after it
-    has destroyed its groups (the store's host leaves last)."""
+    world) past it: process 0 returns only after process 1, a second
+    late, has entered shutdown() (the barrier), and both exit 0 (the
+    teardown loop's test holds the freed group and threads)."""
     port = distributed.free_port()
     outs = distributed.run_processes(
-        [[sys.executable, "-c", CHILD_TEARDOWN, str(port), str(pid), case]
+        [[sys.executable, "-c", CHILD_TEARDOWN, str(port), str(pid)]
          for pid in range(2)], timeout=TIMEOUT, envs=[_env(), _env()])
     for rc, _, err in outs:
         assert rc == 0, err[-3000:]
     got = [json.loads(next(l for l in out.splitlines()
                            if l.startswith("TEARDOWN "))[9:])
            for _, out, _ in outs]
-    for res in got:
-        assert res["freed"] is True
-        assert res["during"] > res["before"]
-        assert res["after"] == res["before"], res
-    if case == "barrier":
-        assert got[0]["returned"] >= got[1]["entered"]
-    if case == "host_last":
-        assert got[0]["returned"] >= got[1]["destroyed"]
+    assert got[0]["returned"] >= got[1]["entered"]
+
+
+@pytest.mark.parametrize("wait", [True, False], ids=["wait", "no_wait"])
+def test_shutdown_frees_the_world_or_raises(monkeypatch, wait):
+    """A one-process gloo world that something still holds after the
+    destroy: shutdown() raises (its threads would outlive it), unless
+    the process is leaving after a failure; either way the world is
+    unregistered and World.group dropped."""
+    world = None
+    torch.distributed.init_process_group(
+        "gloo", store=torch.distributed.HashStore(), world_size=1, rank=0)
+    try:
+        held = torch.distributed.group.WORLD
+        world = distributed.World(0, 1, "gloo", held)
+        monkeypatch.setattr(distributed, "_WORLD", world)
+        if wait:
+            with pytest.raises(RuntimeError, match="outlives"):
+                distributed.shutdown()
+        else:
+            distributed.shutdown(wait=False)
+        assert not torch.distributed.is_initialized()
+        assert world.group is None and distributed.current() is None
+    finally:
+        held = None
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def test_shutdown_destroys_the_nccl_group_before_the_world(monkeypatch):
+    """Under NCCL: the card synchronised, the barrier over the gloo
+    world, then the NCCL group destroyed, then the world, and both
+    freed."""
+    dist = torch.distributed
+
+    class Group:
+        def __init__(self, name):
+            self.name = name
+
+    calls = []
+
+    def destroy(group=None):
+        calls.append(f"destroy {group.name}" if group else "destroy world")
+        if group is None:
+            dist.distributed_c10d._world.default_pg = None
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist.distributed_c10d._world, "default_pg",
+                        Group("world"))
+    monkeypatch.setattr(dist, "barrier", lambda: calls.append("barrier"))
+    monkeypatch.setattr(dist, "destroy_process_group", destroy)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda: calls.append("synchronize"))
+    monkeypatch.setattr(distributed, "_WORLD",
+                        distributed.World(0, 2, "nccl", Group("nccl")))
+    distributed.shutdown()
+    assert calls == ["synchronize", "barrier", "destroy nccl",
+                     "destroy world"]
 
 
 def test_shutdown_without_a_world_waits_for_no_one(monkeypatch):

@@ -1,9 +1,9 @@
-"""The teardown loop (csa_tpu_torch.parallel.teardown) on the CPU: real
-two-process worlds of each kind form, agree and tear down with every
+"""The teardown loop (csa_tpu_torch.parallel.teardown) on the CPU: a real
+pair of processes forms two worlds, agrees and tears down with every
 process exiting 0, no thread of a world left and its group freed; the
 loop's counts of aborted and failed worlds from made-up process results;
-and its entry point asking for the card.  Each spawned group has a
-deadline and a free port."""
+its summary line; and its entry point asking for the card.  Each spawned
+pair has a deadline and free ports."""
 
 import json
 import sys
@@ -16,27 +16,26 @@ from csa_tpu_torch.parallel import distributed, sharded, teardown
 TIMEOUT = 240
 
 
-@pytest.mark.parametrize("kind,worlds", [("ranks", 2), ("dryrun", 1),
-                                         ("cli", 1)])
-def test_teardown_loop_on_the_cpu(kind, worlds):
-    """Two ranks worlds in one pair of processes (a second world after a
-    shutdown in the same process), one dryrun world, one CLI world: no
-    abort, no failure; a ranks world frees its group, leaves no thread
-    behind in either process and ran over gloo."""
-    res = teardown.run_teardown_loop(worlds, kind=kind, device="cpu",
-                                     worlds_per_process=2, timeout=TIMEOUT)
-    assert (res["worlds"], res["aborts"], res["failed"]) == (worlds, 0, 0), \
-        res
+def test_teardown_loop_on_the_cpu():
+    """Two worlds in one pair of processes (a second world after a
+    shutdown in the same process): no abort, no failure; each world ran
+    over gloo, freed its group and left no thread behind in either
+    process (a gloo worker thread alive at interpreter exit aborted the
+    process); the pair's start and exit are recorded."""
+    res = teardown.run_teardown_loop(2, device="cpu", worlds_per_process=2,
+                                     timeout=TIMEOUT)
+    assert (res["worlds"], res["aborts"], res["failed"]) == (2, 0, 0), res
     for rec in res["records"]:
         assert rec["ok"] and rec["exit_codes"] == [0, 0]
-        if kind == "ranks":
-            assert rec["backend"] == "gloo"
-            assert rec["group_freed"] is True
-            assert rec["threads_left"] == [0, 0]
-            assert len(rec["shutdown_ms"]) == 2
+        assert rec["backend"] == "gloo"
+        assert rec["group_freed"] is True
+        assert rec["threads_left"] == [0, 0]
+        assert len(rec["shutdown_ms"]) == len(rec["init_ms"]) == 2
+    assert res["records"][0]["start_s"] > 0
+    assert res["records"][0]["exit_s"] >= 0
     line = teardown.summary_line(res)
-    assert line.startswith(f"summary teardown worlds={worlds} aborts=0 "
-                           "wall_s=")
+    assert line.startswith("summary teardown worlds=2 aborts=0 wall_s=")
+    assert "shutdown_ms_median=" in line and "exit_s_median=" in line
 
 
 def _want():
@@ -47,8 +46,9 @@ def _want():
 def _world_line(pid, exchanges, moved=96):
     return teardown.WORLD_TAG + json.dumps({
         "exchanges": exchanges, "local": [2 * pid, 2 * pid + 1],
-        "rank_process_bytes": moved, "backend": "gloo", "shutdown_ms": 1.0,
-        "group_freed": True, "threads_left": 0})
+        "rank_process_bytes": moved, "backend": "gloo", "init_ms": 5.0,
+        "exchange_ms": 9.0, "shutdown_ms": 1.0, "group_freed": True,
+        "threads_left": 0})
 
 
 def _own(want, pid):
@@ -83,46 +83,27 @@ def test_loop_counts_aborts_and_failures_of_ranks_worlds(monkeypatch):
         return out
 
     monkeypatch.setattr(distributed, "run_processes", fake)
-    res = teardown.run_teardown_loop(4, kind="ranks", device="cpu")
+    res = teardown.run_teardown_loop(4, device="cpu")
     assert res["aborted_worlds"] == [0]
     assert res["failed_worlds"] == [0, 1, 3]
     assert (res["aborts"], res["failed"]) == (1, 3)
     assert "terminate called" in res["records"][0]["error"]
 
 
-def test_loop_counts_aborts_of_dryrun_worlds(monkeypatch):
-    results = iter([{"ok": True, "exit_codes": [0, 0]},
-                    {"ok": False, "exit_codes": [0, -6], "error": "abort"},
-                    {"ok": False, "exit_codes": [1, 0], "error": "raised"},
-                    {"ok": False, "error": "2 processes ran over 1 s"}])
-    monkeypatch.setattr(distributed, "run_multiprocess_dryrun",
-                        lambda *a, **k: next(results))
-    res = teardown.run_teardown_loop(4, kind="dryrun", device="cpu")
-    assert res["aborted_worlds"] == [1]
-    assert res["failed_worlds"] == [1, 2, 3]
-
-
-def test_busy_neighbours_are_stopped(monkeypatch):
-    """The CPU-spinning neighbours run for the loop and are gone after
-    it, also when a world raises."""
-    started = []
-    real = teardown.subprocess.Popen
-
-    def popen(argv, **kw):
-        p = real(argv, **kw)
-        started.append(p)
-        return p
-
-    def boom(*a, **k):
-        assert all(p.poll() is None for p in started)
-        raise KeyboardInterrupt
-
-    monkeypatch.setattr(teardown.subprocess, "Popen", popen)
-    monkeypatch.setattr(distributed, "run_multiprocess_dryrun", boom)
-    with pytest.raises(KeyboardInterrupt):
-        teardown.run_teardown_loop(1, kind="dryrun", device="cpu", busy=2)
-    assert len(started) == 2
-    assert all(p.poll() is not None for p in started)
+def test_summary_line_takes_the_medians():
+    """The breakdown's medians over every process's world and every
+    pair; a key no world recorded is left out."""
+    recs = [{"shutdown_ms": [1.0, 3.0], "init_ms": [10.0, 12.0],
+             "threads_left": [0, 0], "start_s": 8.0, "exit_s": 0.25},
+            {"shutdown_ms": [2.0, 5.0], "init_ms": [11.0, 30.0],
+             "threads_left": [0, 1]}]
+    line = teardown.summary_line({"worlds": 2, "aborts": 0, "failed": 0,
+                                  "wall_s": 20.5, "device": "cpu",
+                                  "records": recs})
+    assert line == ("summary teardown worlds=2 aborts=0 wall_s=20.500 "
+                    "failed=0 device=cpu start_s_median=8.000 "
+                    "init_ms_median=12.000 shutdown_ms_median=3.000 "
+                    "exit_s_median=0.250 threads_left_max=1")
 
 
 @pytest.mark.filterwarnings("ignore:.*found in sys.modules:RuntimeWarning")
