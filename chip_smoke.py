@@ -12,7 +12,8 @@ Phases, one JSON line each on stdout:
                 one nvcc per source, all started together;
   3. mscan:     kernel against its plain version, every option of the
                 max and the min scan, at the collect cascade's shapes
-                (Primates, 8 x 1 Mbp), on i.i.d. values, the cascade's
+                (Primates, 8 x 1 Mbp, 4 x 5 Mbp: 12 x 20,000,768 and
+                the 4 coverage channels), on i.i.d. values, the cascade's
                 own channels and drifting walks, with torch.cummax /
                 torch.cummin timed beside it; then the kernel alone,
                 with and without the reduction over channels, at 1 to
@@ -43,7 +44,18 @@ Phases, one JSON line each on stdout:
                 launch count (zeroed just before, read just after);
   8. mbp:       rotation mode on 8 x 1 Mbp (seed 7): the port's CLI
                 against the native host engine's CLI on the same machine;
-  9. routing:   the crossovers behind the port's routing defaults: a
+  9. mbp_full:  the full pipeline on 8 x 1 Mbp (seed 7) through the port's
+                CLI on the default route with --profile: -Rotated.fasta and
+                -Aligned.fasta against csa_tpu's sha256 (MBP_FULL_SHA256),
+                the integrity check, mscan's launches (zeroed just before,
+                read just after), the stage table, the gap-DP counters and
+                the card's peak memory;
+ 10. mbp5:      rotation mode on 4 x 5 Mbp (seed 13) through the port's CLI
+                on the default route, then analyze once warm: rotations,
+                cascade counts and -Rotated.fasta against csa_tpu's
+                (MBP5_*), mscan's launches, both walls and the card's peak
+                memory;
+ 11. routing:   the crossovers behind the port's routing defaults: a
                 merge that goes alone (the native host fill and walk
                 against one profile_path launch with its upload and the
                 path's download; squares 64^2 to 8192^2, skewed shapes,
@@ -52,7 +64,7 @@ Phases, one JSON line each on stdout:
                 against one batched launch; Primates' and Set3's rounds
                 and synthetic rounds below them) and the rotation route
                 of `auto` (fresh-process R walls, --backend native
-                against device, native, device, device, native, on
+                against device, one run each, on
                 4 x 16 kbp, 8 x 50 kbp, Primates, Set3 and 8 x 500 kbp,
                 with phase mbp's 8 x 1 Mbp walls); each crossover the
                 measured size that minimises the summed time, the
@@ -62,7 +74,7 @@ Phases, one JSON line each on stdout:
                 the integrity check, auto on Primates with its threshold
                 at 0 (mscan launched, no profile DP), and --backend numpy
                 on one tiny fixture;
- 10. band:      the band kernel (one band of the column-sharded DP, on
+ 12. band:      the band kernel (one band of the column-sharded DP, on
                 the profile DP's tile engine) against its plain version,
                 exact in both direction bits of every cell, the bottom
                 row and the right edge: rank-0 edge and halo bands, stale
@@ -72,13 +84,13 @@ Phases, one JSON line each on stdout:
                 the design's floor (its tile anti-diagonals at the
                 profile phase's step time) and the batch fill of the
                 same tile graph;
- 11. seqpar:    dp_path_seqpar on the largest giants of Set3 (16,979 x
+ 13. seqpar:    dp_path_seqpar on the largest giants of Set3 (16,979 x
                 20,852) and Primates (5,307 x 5,945), stale top rows, at
                 2, 4 and 8 ranks on the one card, against the profile
                 kernel's path and the native host library's, and the walk
                 kernel against its host walk; the fill host-timed and its
                 supersteps' device span (CUDA events around every band);
- 12. sharded:   the port's CLI with --backend sharded --mesh 8x1 on
+ 14. sharded:   the port's CLI with --backend sharded --mesh 8x1 on
                 Primates and Set3: output against the fixtures, the
                 rotation sharded too (its profile holds
                 rot.block_stage[sharded] and idx.replicate), the seqpar
@@ -86,7 +98,7 @@ Phases, one JSON line each on stdout:
                 batches inside align.dp_fill, and the band and profile
                 kernels' launch counts (zeroed just before, read just
                 after);
- 13. sharded_rotation: the 8 x 1 Mbp set in mode R over ranks of the one
+ 15. sharded_rotation: the 8 x 1 Mbp set in mode R over ranks of the one
                 card: analyze(mesh=...) at 1, 2, 4 and 8 ranks and the
                 CLI at --backend sharded --mesh 8x1, each twice, their
                 rotations against the native engine's and the
@@ -98,7 +110,7 @@ Phases, one JSON line each on stdout:
                 argsort, the sharded alignment, Set3's giant at 8 ranks);
                 and Primates at --mesh 3x1 (the single-device stage on the
                 mesh's first rank), twice, against the fixture.
- 14. distributed: the multi-process launch.  The dryrun (2 processes x
+ 16. distributed: the multi-process launch.  The dryrun (2 processes x
                 4 ranks on the card, over gloo: the ladder, the final
                 blocks and the rank-split gap DP against one process);
                 the CLI in mode N on Primates and Set3 at --mesh 8x1 as
@@ -115,7 +127,7 @@ Phases, one JSON line each on stdout:
                 exchange on CUDA ranks against one process and ending
                 with shutdown(); every process must exit 0 and no world
                 may abort (with 2 or more cards, 4 worlds over NCCL too);
- 15. fused:     the fused routes (the block stage and the anchors'
+ 17. fused:     the fused routes (the block stage and the anchors'
                 linear sort, one CUDA graph replay and one download a
                 call, below FUSED_MAX_CHARS): Primates and Set3 through
                 the CLI in mode N with the gate forced open (twice: the
@@ -132,7 +144,8 @@ Phases, one JSON line each on stdout:
 Then the card's name and power limit, one short summary line a kernel
 shape, one of the sharded rotation's walls, one of the distributed
 phase, one of the routing phase (its crossovers and the card) and one
-of the fused phase (its gate, walls, memory and traces), so
+of the fused phase (its gate, walls, memory and traces), two of the
+Mbp phases (stage table, walls, card memory), so
 that the end of the output keeps every row, a JSON line with one entry
 per kernel (its time, the plain version's, the bound, the library
 call's), and the last line
@@ -357,12 +370,14 @@ def phase_mscan(mscan, stats):
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     cases = []
-    for n in (278_528, 8_003_584):
+    for n in (278_528, 8_003_584, MBP5_PADDED):
         for cummin in (False, True):
             for reverse in (False, True):
                 for reduce in (False, True):
                     cases.append((12, n, cummin, reverse, reduce))
+    # the coverage scans (k channels, the min over them) of both Mbp sets
     cases.append((8, 8_003_584, False, False, True))
+    cases.append((MBP5_SET[1], MBP5_PADDED, False, False, True))
     worst = 0
     for M, N, cummin, reverse, reduce in cases:
         x = torch.randint(-(2**30), 2**30, (M, N), generator=gen,
@@ -405,7 +420,7 @@ def phase_mscan(mscan, stats):
             if N == 278_528:
                 stats["mscan"].update(rec)
             else:
-                stats["mscan"]["at_12x8003584"] = rec
+                stats["mscan"][f"at_12x{N}"] = rec
         if (M, N, cummin, reverse, reduce) == (12, 8_003_584, True, False,
                                                 False):
             stats["mscan"]["at_12x8003584"]["cummin"] = dict(
@@ -777,12 +792,12 @@ def _mbp_set(n=1_000_000, k=8, seed=7):
     return rows
 
 
-def _write_mbp(path: Path, n=1_000_000, k=8) -> None:
+def _write_mbp(path: Path, n=1_000_000, k=8, seed=7) -> None:
     import numpy as np
 
     letters = np.frombuffer(b"ACGT", dtype=np.uint8)
     with open(path, "w") as f:
-        for i, row in enumerate(_mbp_set(n, k)):
+        for i, row in enumerate(_mbp_set(n, k, seed)):
             f.write(f">s{i}\n{letters[row].tobytes().decode()}\n")
 
 
@@ -812,6 +827,182 @@ def phase_mbp(cli, rot, kernels, fio):
           "native_cli_R_wall_s": native_wall})
     return want, port_analyze_ms / 1e3, {"device": port_wall,
                                          "native": native_wall}
+
+
+# csa_tpu's outputs at its two Mbp configurations (bench.py's _mbp_set),
+# taken on a CPU host, since the card's machine has no JAX.  The sets are
+# written by _write_mbp; in an empty directory with the repo on the path:
+#   python -c "import chip_smoke as c, pathlib; c._write_mbp(pathlib.Path('mbp.txt'), *c.MBP_FULL_SET)"
+#   python -m csa_tpu.cli mbp.txt --backend native
+#   sha256sum mbp-Rotated.fasta mbp-Aligned.fasta
+MBP_FULL_SET = (1_000_000, 8, 7)
+MBP_FULL_SHA256 = {
+    "mbp-Rotated.fasta":
+        "31e098ddd699cfff0df133e68936e5f6e066b98bd366a5739ab8192ce7979759",
+    "mbp-Aligned.fasta":
+        "18caec92c59fa2d3a89ee55eb32159f9ccad5adca6b64eb2dc56eff93f182872",
+}
+# 4 x 5 Mbp, seed 13, mode R:
+#   python -c "import chip_smoke as c, pathlib; c._write_mbp(pathlib.Path('mbp5.txt'), *c.MBP5_SET)"
+#   python -m csa_tpu.cli R mbp5.txt --backend native
+#   (the rotations from the headers, the four cascade counts from the
+#   console, sha256sum mbp5-Rotated.fasta)
+MBP5_SET = (5_000_000, 4, 13)
+# its padded size k * _bucket(n), the collect cascade's scan length
+MBP5_PADDED = 4 * 5_000_192
+MBP5_ROTATIONS = [3_896_717, 4_584_269, 4_567_895, 2_524_738]
+MBP5_CASCADE = (4_222_026, 92_976, 73_206, 29_951)
+MBP5_ROTATED_SHA256 = (
+    "fba4a228e5a1861a01ea2614fa7ce27863f5e964bab951d15e0056b6e80c9cb7")
+
+
+def sha256_of(path: Path) -> str:
+    import hashlib
+
+    return hashlib.sha256(Path(path).read_bytes()).hexdigest()
+
+
+def cascade_counts(text: str):
+    """The four cascade counts of the console (nodes found, nodes left
+    after the suffix and the repeat filters, chains)."""
+    import re
+
+    found = re.findall(r"(\d+) nodes found", text)
+    left = re.findall(r"(\d+) nodes left", text)
+    chains = re.findall(r"(\d+) chains found", text)
+    check(len(found) == 1 and len(left) == 2 and len(chains) == 1,
+          "the console does not hold the four cascade counts")
+    return tuple(int(v) for v in (found[0], *left, chains[0]))
+
+
+def profile_table(text: str):
+    """({phase: seconds}, {counter: value}) of a ``--profile`` report: the
+    phase lines, then (after the TOTAL line) the counters."""
+    phases, counters = {}, {}
+    lines = text.splitlines()
+    for i, line in enumerate(lines):
+        if line.startswith(">   TOTAL"):
+            break
+        if line.startswith(">   "):
+            name, secs = line.split()[1:3]
+            phases[name] = float(secs.rstrip("s"))
+    for line in lines[i + 1:]:
+        if line.startswith("> [profile] DP cell-updates:"):
+            counters["dp_cells"] = float(line.split()[4])
+        elif line.startswith("> [profile] "):
+            name, value = line[len("> [profile] "):].split(": ")
+            counters[name] = float(value)
+    return phases, counters
+
+
+def check_mbp_full(tmp: Path, text: str) -> None:
+    """The 8 x 1 Mbp run's console and files in ``tmp`` against
+    csa_tpu's."""
+    check("> Done!" in text, "mbp_full: the CLI did not print > Done!")
+    check("> Checking integrity of aligned sequences... OK" in text,
+          "mbp_full: integrity check failed")
+    for name, want in MBP_FULL_SHA256.items():
+        check(sha256_of(tmp / name) == want,
+              f"mbp_full: {name} differs from csa_tpu's")
+
+
+def check_mbp5(tmp: Path, text: str) -> None:
+    """The 4 x 5 Mbp R run's cascade counts and rotated file in ``tmp``
+    against csa_tpu's (its headers hold the rotations)."""
+    check(cascade_counts(text) == MBP5_CASCADE,
+          f"mbp5: cascade counts {cascade_counts(text)} differ from "
+          f"csa_tpu's {MBP5_CASCADE}")
+    check(sha256_of(tmp / "mbp5-Rotated.fasta") == MBP5_ROTATED_SHA256,
+          "mbp5: -Rotated.fasta differs from csa_tpu's")
+
+
+def phase_mbp_full(cli, kernels):
+    """The full pipeline at 8 x 1 Mbp (seed 7) through the port's CLI on
+    the default route, both output files against csa_tpu's digests."""
+    import torch
+
+    from csa_tpu_torch.utils import PROFILER
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _write_mbp(tmp / "mbp.txt", *MBP_FULL_SET)
+        PROFILER.reset()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        try:
+            text, wall = run_port_cli(cli, tmp, ["mbp.txt", "--profile"])
+        finally:
+            PROFILER.enabled = False
+        launches = dict(kernels.COUNTS)
+        peak = torch.cuda.max_memory_allocated()
+        check_mbp_full(tmp, text)
+    check(launches["mscan"] > 0, f"mbp_full: mscan was not launched: "
+                                 f"{launches}")
+    phases, counters = profile_table(text)
+    out = {"sequences": MBP_FULL_SET[1], "length": MBP_FULL_SET[0],
+           "cascade": cascade_counts(text), "outputs_equal_csa_tpu": True,
+           "integrity": True, "wall_s": wall, "launches": launches,
+           "cuda_peak_bytes": peak, "phases_s": phases,
+           "counters": counters}
+    emit({"phase": "mbp_full", **out})
+    return out
+
+
+def phase_mbp5(cli, rot, kernels, fio):
+    """Rotation (mode R) at 4 x 5 Mbp (seed 13) through the port's CLI on
+    the default route, then analyze once warm, against csa_tpu's
+    rotations and cascade counts."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        src = tmp / "mbp5.txt"
+        _write_mbp(src, *MBP5_SET)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        text, cli_wall = run_port_cli(cli, tmp, ["R", "mbp5.txt"])
+        launches = dict(kernels.COUNTS)
+        cli_peak = torch.cuda.max_memory_allocated()
+        check_mbp5(tmp, text)
+        got = rotations_of(fio, tmp / "mbp5-Rotated.fasta")
+        seqs = fio.load_fasta(str(src), log=io.StringIO())
+    torch.cuda.reset_peak_memory_stats()
+    res, analyze_ms = wall_ms(lambda: rot.analyze(
+        seqs, device="cuda", log=io.StringIO()))
+    analyze_peak = torch.cuda.max_memory_allocated()
+    check(launches["mscan"] > 0, f"mbp5: mscan was not launched: {launches}")
+    check(got == MBP5_ROTATIONS, f"mbp5: rotations {got} differ from "
+                                 f"csa_tpu's {MBP5_ROTATIONS}")
+    check(list(map(int, res.rotations)) == MBP5_ROTATIONS
+          and (res.num_collected, res.num_after_suffix, res.num_after_unique,
+               res.num_chains) == MBP5_CASCADE,
+          "mbp5: analyze (warm) differs from csa_tpu")
+    out = {"sequences": MBP5_SET[1], "length": MBP5_SET[0],
+           "rotations_equal_csa_tpu": True, "cascade": MBP5_CASCADE,
+           "cli_R_wall_s": cli_wall, "analyze_warm_s": analyze_ms / 1e3,
+           "launches": launches, "cli_cuda_peak_bytes": cli_peak,
+           "analyze_cuda_peak_bytes": analyze_peak}
+    emit({"phase": "mbp5", **out})
+    return out
+
+
+def summary_mbp(full, mbp5, card: str) -> None:
+    ph = full["phases_s"]
+    top = ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+        ph.items(), key=lambda kv: -kv[1]) if not k.endswith(".total"))
+    c = full["counters"]
+    print(f"summary mbp_full 8x1Mbp ({card}): wall {full['wall_s']:.3f} s, "
+          f"align.total {ph.get('align.total', 0):.3f}; {top}; "
+          f"dp_device_dispatches {c.get('dp_device_dispatches', 0):.0f}, "
+          f"dp_cells {c.get('dp_cells', 0):.4g}; card peak "
+          f"{full['cuda_peak_bytes'] / 2**30:.3f} GiB; launches "
+          f"{full['launches']}; outputs equal csa_tpu's", flush=True)
+    print(f"summary mbp5 4x5Mbp R ({card}): CLI {mbp5['cli_R_wall_s']:.3f} "
+          f"s, analyze warm {mbp5['analyze_warm_s']:.3f} s; card peak "
+          f"{mbp5['cli_cuda_peak_bytes'] / 2**30:.3f} / "
+          f"{mbp5['analyze_cuda_peak_bytes'] / 2**30:.3f} GiB; launches "
+          f"{mbp5['launches']}; rotations and cascade equal csa_tpu's",
+          flush=True)
 
 
 # the routing phase's synthetic merges (rows x columns): squares, and
@@ -926,11 +1117,12 @@ def _bins(points):
 
 def _r_walls(tmp: Path, name: str):
     """Fresh-process walls of the port's CLI in mode R on ``name``.txt in
-    ``tmp``, native and device in turns (native, device, device,
-    native); the rotated output of both routes must agree."""
+    ``tmp``, native then device (one run each: the Mbp phases take the
+    time of the other runs); the rotated output of both routes must
+    agree."""
     walls = {"native": [], "device": []}
     out = {}
-    for backend in ("native", "device", "device", "native"):
+    for backend in ("native", "device"):
         rotated = tmp / f"{name}-Rotated.fasta"
         rotated.unlink(missing_ok=True)
         walls[backend].append(run_python(tmp, [
@@ -1965,6 +2157,8 @@ def summary(stats, launches) -> None:
     library ms, launches on its path."""
     rows = [("mscan 12x278528", stats["mscan"], "mscan"),
             ("mscan 12x8003584", stats["mscan"]["at_12x8003584"], "mscan"),
+            (f"mscan 12x{MBP5_PADDED}",
+             stats["mscan"][f"at_12x{MBP5_PADDED}"], "mscan"),
             ("profile_dp 8x8192^2", stats["profile_dp"], "profile_dp"),
             ("nw 135x17408^2", stats["nw"], "nw"),
             ("nw set3 oracle", stats["nw"]["set3_oracle"], "nw"),
@@ -2006,6 +2200,8 @@ def main() -> int:
     launches, walls = phase_pipeline(cli, kernels, tools_files)
     launches["nw"] = phase_verify(cli, kernels, nw, verification)["nw"]
     mbp_native, mbp_single_s, mbp_walls = phase_mbp(cli, rot, kernels, fio)
+    mbp_full = phase_mbp_full(cli, kernels)
+    mbp5 = phase_mbp5(cli, rot, kernels, fio)
     routing = phase_routing(cli, rot, kernels, fio, msa, profile, native,
                             tools_files, config, mbp_walls)
     phase_band(band, stats)
@@ -2036,6 +2232,7 @@ def main() -> int:
     summary_teardown(dist_out, teardown, card)
     summary_routing(routing)
     summary_fused(fused)
+    summary_mbp(mbp_full, mbp5, card)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **stats[name]}
