@@ -22,6 +22,7 @@ import numpy as np
 
 from .. import native
 from ..index import engine
+from ..utils import PROFILER
 
 __all__ = ["BorderNode", "build_linear_index", "compute_border_nodes"]
 
@@ -242,13 +243,16 @@ def compute_border_nodes(encoded_rotated: Sequence[np.ndarray], device=None,
     built on ``backend``'s route (:func:`build_linear_index`).  The
     ``numpy`` route keeps the attachment statistics in numpy too, as
     ``csa_tpu`` does."""
-    idx = build_linear_index(encoded_rotated, device, backend)
-    res = None
-    if backend != "numpy":
-        res = native.anchor_attach(idx.seq_of, idx.lcp, idx.cap,
-                                   idx.num_seqs)
-    att, lb2 = res if res is not None else _attach_numpy(idx)
-    return _group_border_nodes(idx, att, lb2)
+    with PROFILER.phase("align.anchors.sort"):
+        idx = build_linear_index(encoded_rotated, device, backend)
+    with PROFILER.phase("align.anchors.attach"):
+        res = None
+        if backend != "numpy":
+            res = native.anchor_attach(idx.seq_of, idx.lcp, idx.cap,
+                                       idx.num_seqs)
+        att, lb2 = res if res is not None else _attach_numpy(idx)
+    with PROFILER.phase("align.anchors.group"):
+        return _group_border_nodes(idx, att, lb2)
 
 
 def _group_border_nodes(

@@ -53,8 +53,25 @@ the single-process run's.
 against sampled alternatives with the pairwise NW kernel on
 ``--device`` (:mod:`csa_tpu_torch.rotation.verification`), whatever
 the route.
+``--profile`` records each phase of the run as a span in memory (name,
+start, end, parent phase, job) and prints, after the run, every phase's
+total and self time (without its child phases), a ``TOTAL`` of the
+root phases and the counters (DP cells, device dispatches,
+``idx.device_reads``: the host's reads of device values in the rotation
+block stage).  The root phase is ``cli.main``, the whole call of
+:func:`main`; a process started as the CLI (``python -m
+csa_tpu_torch.cli``, the ``csa-tpu-torch`` script, as the web frontend
+starts one a job) also shows its start-up: ``startup.imports`` (from the
+package's import to :func:`main`, ``import torch`` included),
+``startup.cuda_context``, ``startup.kernel_library`` and
+``startup.host_library`` (the first load of each library).  What a
+process spends outside those (its spawn, the interpreter's start and
+exit) is its wall minus ``startup.imports`` and ``cli.main``.  Without
+``--profile`` a phase costs one attribute check.
 ``CSA_TPU_TORCH_TRACE=<dir>`` wraps the run in ``torch.profiler`` and
-writes ``<dir>/trace.json``.
+writes ``<dir>/trace.json``; with ``--profile`` it holds every phase on
+the device events' clock, start-up and ``cli.main`` included (``cat:
+"csa_span"``, the job and the parent's name in ``args``).
 
     python -m csa_tpu_torch.cli Primates.txt
     python -m csa_tpu_torch.cli R Primates.txt --backend native
@@ -112,6 +129,9 @@ def _load(args) -> fio.SequenceSet:
 
 
 DEVICE_ROUTES = ("device", "sharded")
+# the CUDA devices whose context this process has made (it lives as long
+# as the process)
+_CUDA_CONTEXTS = set()
 
 
 def _device(args):
@@ -129,6 +149,14 @@ def _device(args):
         )
     if dev.type not in ("cpu", "cuda"):
         raise SystemExit(f"> ERROR: unsupported --device {args.device}")
+    if dev.type == "cuda" and not _CUDA_CONTEXTS:
+        from .utils import PROFILER
+
+        # the primary context, made here and not inside the first
+        # device phase, so that start-up shows it on its own
+        with PROFILER.startup_phase("startup.cuda_context"):
+            torch.cuda.synchronize(dev)
+        _CUDA_CONTEXTS.add(dev)
     args.device = dev
     return dev
 
@@ -149,7 +177,6 @@ def run_rotation(args, seqs: fio.SequenceSet):
     from .rotation import pipeline as rot
     from .utils import PROFILER
 
-    t0 = time.time()
     backend = args.backend
     if backend == "auto":
         backend = rot.resolve_auto_backend(int(sum(seqs.sizes)))
@@ -170,16 +197,15 @@ def run_rotation(args, seqs: fio.SequenceSet):
                 log=sys.stdout,
             )
     with PROFILER.phase("rot.artifacts"):
-        fio.save_rotated(seqs, res.rotations,
-                         output_filename(args.input, ROTATIONS_SUFFIX))
-        blocks_report.write_blocks_artifacts(
-            args.input, seqs, res,
-            min_block_size=args.kw["min_block_size"],
-            max_block_size=args.kw["max_block_size"],
-        )
-    if args.profile:
-        print(f"> [profile] rotation phase: {time.time() - t0:.3f}s "
-              f"(backend={backend}, device={args.device})")
+        with PROFILER.phase("rot.artifacts.fasta"):
+            fio.save_rotated(seqs, res.rotations,
+                             output_filename(args.input, ROTATIONS_SUFFIX))
+        with PROFILER.phase("rot.artifacts.blocks"):
+            blocks_report.write_blocks_artifacts(
+                args.input, seqs, res,
+                min_block_size=args.kw["min_block_size"],
+                max_block_size=args.kw["max_block_size"],
+            )
     return res
 
 
@@ -213,6 +239,7 @@ def _mesh(args):
 def run_alignment(args, seqs: fio.SequenceSet, rotations) -> str:
     from .align import msa
     from .tools import files as tools_files
+    from .utils import PROFILER
 
     alignfile = output_filename(args.input, ALIGNMENT_SUFFIX)
     print("> Running multiple sequence alignment...")
@@ -220,14 +247,31 @@ def run_alignment(args, seqs: fio.SequenceSet, rotations) -> str:
     device = _device(args) if backend in DEVICE_ROUTES else None
     result = msa.align(seqs, rotations, device=device, mesh=args.rank_mesh,
                        backend=backend, **scoring_kwargs(args.kw))
-    msa.save_alignment(seqs, rotations, result, alignfile)
+    with PROFILER.phase("align.save"):
+        msa.save_alignment(seqs, rotations, result, alignfile)
     rotfile = output_filename(args.input, ROTATIONS_SUFFIX)
     source = rotfile if os.path.exists(rotfile) else args.input
-    tools_files.test_alignment_output(source, alignfile)
+    with PROFILER.phase("align.check_output"):
+        tools_files.test_alignment_output(source, alignfile)
     return alignfile
 
 
+def console_main() -> int:
+    """``python -m csa_tpu_torch.cli`` and the ``csa-tpu-torch`` script:
+    :func:`main` as the process's one job, with ``--profile`` spanning
+    the process's start-up too (``torch`` is imported before
+    :func:`main`, inside ``startup.imports``)."""
+    from .utils import PROFILER
+
+    PROFILER.startup = True
+    try:
+        return main()
+    finally:
+        PROFILER.startup = False
+
+
 def main(argv=None) -> int:
+    entry = time.perf_counter_ns()
     parser = argparse.ArgumentParser(
         prog="csa-tpu-torch",
         description="Multiple circular sequence aligner (PyTorch/CUDA)",
@@ -332,20 +376,31 @@ def main(argv=None) -> int:
     if not args.input or not mode:
         parser.print_help()
         return 0
+    from . import IMPORTED_NS
     from .parallel import distributed
+    from .utils import torch_trace
 
-    try:
-        rc = _run(args, mode)
-    except BaseException:
-        distributed.shutdown(wait=False)
-        raise
-    distributed.shutdown()
-    return rc
+    # the job's root span closes, and the trace is written, before the
+    # report prints
+    with torch_trace(os.environ.get("CSA_TPU_TORCH_TRACE")), \
+            PROFILER.job("cli.main", entry):
+        if PROFILER.startup:
+            PROFILER.record("startup.imports", IMPORTED_NS, entry)
+        try:
+            _run(args, mode)
+        except BaseException:
+            distributed.shutdown(wait=False)
+            raise
+        distributed.shutdown()
+    if args.profile:
+        PROFILER.report(sys.stdout)
+    print("> Done!")
+    return 0
 
 
-def _run(args, mode: str) -> int:
+def _run(args, mode: str) -> None:
     from .parallel import distributed
-    from .utils import PROFILER, torch_trace
+    from .utils import PROFILER
 
     if mode in ("N", "R", "A"):
         # a device route looks for the card now; auto when it resolves
@@ -363,32 +418,31 @@ def _run(args, mode: str) -> int:
             print(f"> Multi-host runtime: process {world.rank}/{world.size}"
                   f", {ranks} global ranks, backend {world.backend}")
 
-    with torch_trace(os.environ.get("CSA_TPU_TORCH_TRACE")):
-        if mode in ("N", "R", "A"):
-            with PROFILER.phase("io.load_fasta"):
-                seqs = _load(args)
+    if mode in ("N", "R", "A"):
+        with PROFILER.phase("io.load_fasta"):
+            seqs = _load(args)
 
-        res = None
-        if mode in ("N", "R"):
-            print("> Building generalized cyclic suffix index...")
-            res = run_rotation(args, seqs)
+    res = None
+    if mode in ("N", "R"):
+        print("> Building generalized cyclic suffix index...")
+        res = run_rotation(args, seqs)
 
-        alignfile = None
-        if mode in ("N", "A"):
-            import numpy as np
+    alignfile = None
+    if mode in ("N", "A"):
+        import numpy as np
 
-            rotations = (res.rotations if res is not None
-                         else np.zeros(len(seqs), dtype=np.int64))
-            with PROFILER.phase("align.total"):
-                alignfile = run_alignment(args, seqs, rotations)
+        rotations = (res.rotations if res is not None
+                     else np.zeros(len(seqs), dtype=np.int64))
+        with PROFILER.phase("align.total"):
+            alignfile = run_alignment(args, seqs, rotations)
 
-        if mode in ("N", "I"):
-            from .report import circular_plot
+    if mode in ("N", "I"):
+        from .report import circular_plot
 
-            source = alignfile if alignfile else args.input
-            out = output_filename(args.input, CIRCULARIMAGE_SUFFIX)
-            with PROFILER.phase("report.circular_plot"):
-                circular_plot.draw_circular_alignment_plot(source, out)
+        source = alignfile if alignfile else args.input
+        out = output_filename(args.input, CIRCULARIMAGE_SUFFIX)
+        with PROFILER.phase("report.circular_plot"):
+            circular_plot.draw_circular_alignment_plot(source, out)
 
     if mode in ("C", "S", "M"):
         from .tools import files as tools_files
@@ -396,11 +450,6 @@ def _run(args, mode: str) -> int:
         {"C": tools_files.clean_fasta, "S": tools_files.sum_of_pairs_score,
          "M": tools_files.fasta_to_msf}[mode](args.input)
 
-    if args.profile:
-        PROFILER.report(sys.stdout)
-    print("> Done!")
-    return 0
-
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(console_main())

@@ -82,6 +82,14 @@ def _tdeep_for(mg0: int, k: int, n_max: int) -> int:
     )
 
 
+def _read(fn, *args):
+    """``fn(*args)``, which waits for the device and brings a value of
+    it to the host: each call counts one in the counter
+    ``idx.device_reads`` (the staged block stage's reads)."""
+    PROFILER.add("idx.device_reads", 1)
+    return fn(*args)
+
+
 def _stable_sort2(k1: torch.Tensor, k2: torch.Tensor, span: int):
     """Stable lexicographic order of (k1, k2), 0 <= k2 < span."""
     _, order = torch.sort(k1 * span + k2, stable=True)
@@ -174,7 +182,7 @@ def _dup_flag(order, rank, lengths, *, n_max: int) -> torch.Tensor:
 
 def _dup_check(order, rank, lengths, *, n_max: int) -> bool:
     """Same-sequence identical periodic rotations."""
-    return bool(_dup_flag(order, rank, lengths, n_max=n_max))
+    return _read(bool, _dup_flag(order, rank, lengths, n_max=n_max))
 
 
 def _lcp_step(off, rank_t, a, b, n_a, n_b, h: int, *, n_max: int):
@@ -238,14 +246,14 @@ def _device_build(encoded: Sequence[np.ndarray], device, *, pack_w: int = 12):
     with PROFILER.phase("idx.l0_sort"):
         order, rank, nt, mg0 = _level0(packed, lengths, n_max=n_max,
                                        pack_w=pack_w)
-        nt, mg0 = int(nt), int(mg0)
+        nt, mg0 = _read(int, nt), _read(int, mg0)
     ranks = [rank]
     t = 0
     with PROFILER.phase("idx.refine"):
         while nt > 0 and (pack_w << t) < n_max:
             order, rank, nt, _ = _refine(rank, lengths, pack_w << t,
                                          n_max=n_max)
-            nt = int(nt)
+            nt = _read(int, nt)
             ranks.append(rank)
             t += 1
     if nt > 0 and _dup_check(order, rank, lengths, n_max=n_max):
@@ -413,13 +421,14 @@ def _collect_tail(order, lcp, lengths, collected, start, end, *, k: int,
     n_of = _n_of_flat(lengths, n_max)
     pos_sorted = order % n_max
 
-    bsel = torch.nonzero(collected).reshape(-1)
+    bsel = _read(torch.nonzero, collected).reshape(-1)
     nb = int(bsel.shape[0])
     bstart, bend, bdepth = start[bsel], end[bsel], lcp[bsel]
     width = bend - bstart + 1          # >= 2: a node boundary lies inside
 
     # expand the (disjoint) collected intervals: one entry per member
-    blk = torch.repeat_interleave(torch.arange(nb, device=dev), width)
+    blk = _read(torch.repeat_interleave, torch.arange(nb, device=dev),
+                width)
     offs = torch.cumsum(width, 0) - width
     r = bstart[blk] + (torch.arange(blk.shape[0], device=dev) - offs[blk])
     gmem = order[r]
@@ -446,11 +455,11 @@ def _collect_tail(order, lcp, lengths, collected, start, end, *, k: int,
                             pos_sorted[minr.clamp(max=n_total - 1)], 0)
 
     final = keep_suffix & unique
-    fsel = torch.nonzero(final).reshape(-1)
-    fstart = bstart[fsel].cpu().numpy()
-    fdepth = bdepth[fsel].cpu().numpy()
-    fpos = positions.reshape(nb, k)[fsel].cpu().numpy()
-    return nb, int(keep_suffix.sum()), fstart, fdepth, fpos
+    fsel = _read(torch.nonzero, final).reshape(-1)
+    fstart = _read(torch.Tensor.cpu, bstart[fsel]).numpy()
+    fdepth = _read(torch.Tensor.cpu, bdepth[fsel]).numpy()
+    fpos = _read(torch.Tensor.cpu, positions.reshape(nb, k)[fsel]).numpy()
+    return nb, _read(int, keep_suffix.sum()), fstart, fdepth, fpos
 
 
 def _slim(nb: int, n_suffix: int, start, depth, pos) -> RotationFinal:

@@ -38,6 +38,8 @@ from typing import Optional
 
 import torch
 
+from ..utils import PROFILER
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -156,13 +158,14 @@ def load() -> ctypes.CDLL:
     """Build if needed and load the kernel library (once per process)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.csa_error_string.argtypes = [ctypes.c_int]
-        lib.csa_error_string.restype = ctypes.c_char_p
+        with PROFILER.startup_phase("startup.kernel_library"):
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.csa_error_string.argtypes = [ctypes.c_int]
+            lib.csa_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 

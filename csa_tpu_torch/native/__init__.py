@@ -55,10 +55,19 @@ def _build() -> Optional[Path]:
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
+    global _tried
     if _lib is not None or _tried:
         return _lib
     _tried = True
+    from ..utils import PROFILER
+
+    with PROFILER.startup_phase("startup.host_library"):
+        return _bind()
+
+
+def _bind() -> Optional[ctypes.CDLL]:
+    """Build if needed and bind the library: the first :func:`_load`."""
+    global _lib
     path = _build()
     if path is None:
         return None
