@@ -72,16 +72,15 @@ def write_blocks_artifacts(
             size = block.totalsize
         else:
             size = block.depth
+        positions = block.positions[:k].tolist()
         if size > 0 and min_block_size <= size <= max_block_size:
             rotated = [
-                painter.draw_block_rotated(int(block.positions[i]), size, i)
+                painter.draw_block_rotated(positions[i], size, i)
                 for i in range(k)
             ]
             rgb = painter.next_color()
-            datafile.write(f"{rgb[0]} {rgb[1]} {rgb[2]} {size}")
-            for p in rotated:
-                datafile.write(f" {p}")
-            datafile.write("\n")
+            datafile.write(f"{rgb[0]} {rgb[1]} {rgb[2]} {size}"
+                           + "".join(f" {p}" for p in rotated) + "\n")
             painter.connect_blocks()
             ndrawn += 1
         if block.totalsize == -1:
@@ -94,10 +93,8 @@ def write_blocks_artifacts(
                 else label[:chars_to_print] + "..."
             )
             print(f":: ({block.size}) {shown}", file=log)
-        csvfile.write(f"{block.totalsize},{label}")
-        for i in range(k):
-            csvfile.write(f",{int(block.positions[i])}")
-        csvfile.write("\n")
+        csvfile.write(f"{block.totalsize},{label}"
+                      + "".join(f",{p}" for p in positions) + "\n")
         chains_total += 1
     if chains_total > n_to_print:
         print(f":: ... ({chains_total} total)", file=log)

@@ -17,32 +17,14 @@ BI_RGB = 0
 BI_RLE8 = 1
 
 
-def _build_palette(img: np.ndarray, color_hint=None):
-    """Map an (H, W, 3) uint8 image to (palette (P,3), indices (H,W)).
-
-    color_hint: optional iterable of (r, g, b) colors known to cover the
-    image (the Canvas tracks every color its draw calls used).  When the
-    hint holds and has <= 256 entries, the palette maps via a sorted-key
-    binary search instead of a full np.unique over H*W pixels; a wrong
-    or oversized hint silently falls back to the exact path.
-    """
+def _build_palette(img: np.ndarray):
+    """Map an (H, W, 3) uint8 image to (palette (P,3), indices (H,W))."""
     h, w, _ = img.shape
     keys = (
         (img[:, :, 0].astype(np.uint32) << 16)
         | (img[:, :, 1].astype(np.uint32) << 8)
         | img[:, :, 2].astype(np.uint32)
     ).reshape(-1)
-    if color_hint is not None and 0 < len(color_hint) <= 256:
-        hint = np.asarray(sorted(color_hint), dtype=np.uint32)
-        hkeys = (hint[:, 0] << 16) | (hint[:, 1] << 8) | hint[:, 2]
-        idx = np.searchsorted(hkeys, keys)
-        idx[idx >= len(hkeys)] = 0
-        if (hkeys[idx] == keys).all():
-            pal = np.stack(
-                [(hkeys >> 16) & 0xFF, (hkeys >> 8) & 0xFF, hkeys & 0xFF],
-                axis=1,
-            ).astype(np.uint8)
-            return pal, idx.reshape(h, w).astype(np.uint8)
     uniq = np.unique(keys)
     # uniq is sorted and complete, so the inverse map is a binary search
     # (much cheaper than np.unique's return_inverse argsort)
@@ -101,29 +83,27 @@ def _rle8_encode(indices: np.ndarray) -> bytes:
     chunk_lens = np.full(tot, 255, dtype=np.uint8)
     last = np.cumsum(nch) - 1
     chunk_lens[last] = (lens - (nch - 1) * 255).astype(np.uint8)
-    # rows: starts // w indexes bottom-up rows directly
-    chunk_row = np.repeat(starts // w, nch)
-    per_row = np.bincount(chunk_row, minlength=h)
-    row_bytes = per_row * 2 + 2  # chunks + end-of-line marker
-    row_base = np.concatenate([[0], np.cumsum(row_bytes)[:-1]])
-    chunk_base = np.concatenate([[0], np.cumsum(per_row)[:-1]])
-    within = np.arange(tot) - np.repeat(chunk_base, per_row)
-    pos = row_base[chunk_row] + within * 2
-    out = np.zeros(int(row_bytes.sum()) + 2, dtype=np.uint8)
+    # starts // w indexes bottom-up rows directly; each row ends in an
+    # end-of-line pair (00 00), so chunk j is pair j + (its row)
+    pos = 2 * (np.arange(tot) + np.repeat(starts // w, nch))
+    out = np.zeros(2 * (tot + h) + 2, dtype=np.uint8)
     out[pos] = chunk_lens
     out[pos + 1] = vals
-    # end-of-line 00 00 pairs are already zero; final end-of-bitmap:
-    out[-2] = 0
-    out[-1] = 1
+    out[-1] = 1  # end of bitmap: 00 01
     return out.tobytes()
 
 
-def write_bmp(path: str, img: np.ndarray, rle: bool = True,
-              color_hint=None) -> None:
+def write_bmp(path: str, img: np.ndarray, rle: bool = True) -> None:
     """Write an (H, W, 3) uint8 RGB array as an 8-bit palette BMP."""
-    img = np.asarray(img, dtype=np.uint8)
-    h, w, _ = img.shape
-    palette, indices = _build_palette(img, color_hint=color_hint)
+    palette, indices = _build_palette(np.asarray(img, dtype=np.uint8))
+    write_indexed_bmp(path, palette, indices, rle=rle)
+
+
+def write_indexed_bmp(path: str, palette: np.ndarray, indices: np.ndarray,
+                      rle: bool = True) -> None:
+    """Write (H, W) uint8 indices into a (P <= 256, 3) RGB palette as an
+    8-bit palette BMP: RLE8 where that is shorter than the raw rows."""
+    h, w = indices.shape
     pal256 = np.zeros((256, 4), dtype=np.uint8)
     pal256[: len(palette), 0] = palette[:, 2]  # blue
     pal256[: len(palette), 1] = palette[:, 1]  # green
@@ -132,9 +112,8 @@ def write_bmp(path: str, img: np.ndarray, rle: bool = True,
     if rle:
         data = _rle8_encode(indices)
         compression = BI_RLE8
-        raw = _raw_rows(indices)
-        if len(data) >= len(raw):  # RLE not worth it
-            data = raw
+        if len(data) >= h * ((w + 3) & ~3):  # RLE not worth it
+            data = _raw_rows(indices)
             compression = BI_RGB
     else:
         data = _raw_rows(indices)

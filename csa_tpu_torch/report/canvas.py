@@ -2,12 +2,14 @@
 
 Own-design equivalent of the drawing layer in reference source/graphics.c
 (lines/rects/text on a palette bitmap).  Uses a numpy RGB buffer and a
-compact 3x5 pixel font covering the characters the reports need.
+compact 3x5 pixel font covering the characters the reports need.  Lines
+and text are computed as whole pixel arrays (:func:`line_pixels`,
+:func:`text_pixels`), which the block map's indexed raster shares.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -38,123 +40,92 @@ _F = {
 }
 
 
+# every glyph of _F as a (5, 3) mask, in _F's order; a character _F
+# lacks draws as the space
+_GLYPH = {ch: i for i, ch in enumerate(_F)}
+_MASKS = np.array(
+    [[b == "1" for b in bits] for bits in _F.values()], dtype=bool
+).reshape(-1, 5, 3)
+
+
+def line_pixels(x0: Sequence[int], y0: Sequence[int], x1: Sequence[int],
+                y1: Sequence[int]):
+    """Every pixel of the all-octant Bresenham lines from (x0[i], y0[i])
+    to (x1[i], y1[i]), both ends included, unclipped: (xs, ys, line),
+    each line's pixels in drawing order and the lines in turn.
+
+    The serial form (error ``err = dx - |dy|``; step x when ``2 err >=
+    -|dy|``, y when ``2 err <= dx``) moves one pixel along the major axis
+    a step, so a line has ``major + 1`` pixels, and after ``i`` steps it
+    has moved ``(2 i minor + major) // (2 major)`` along the minor axis.
+    """
+    x0, y0, x1, y1 = (np.asarray(v, dtype=np.int64).reshape(-1)
+                      for v in (x0, y0, x1, y1))
+    dx, dy = x1 - x0, y1 - y0
+    sx, sy = np.sign(dx), np.sign(dy)
+    steep = np.abs(dy) > np.abs(dx)
+    major = np.where(steep, np.abs(dy), np.abs(dx))
+    # a line's start, its step a pixel and its step along the minor axis
+    # (each as x, y), its minor and its major length
+    per = np.stack([x0, y0, np.where(steep, 0, sx), np.where(steep, sy, 0),
+                    np.where(steep, sx, 0), np.where(steep, 0, sy),
+                    np.abs(dx) + np.abs(dy) - major, major])
+    n = major + 1
+    line = np.repeat(np.arange(len(n)), n)
+    i = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+    x, y, ux, uy, vx, vy, minor, big = per[:, line]
+    off = (2 * i * minor + big) // np.maximum(2 * big, 1)
+    return x + ux * i + vx * off, y + uy * i + vy * off, line
+
+
+def text_pixels(x: int, y: int, s: str):
+    """The pixels of ``s`` (upper-cased) in the 3x5 font from (x, y),
+    4 pixels a character, unclipped: (xs, ys)."""
+    ids = np.array([_GLYPH.get(ch, _GLYPH[" "]) for ch in s.upper()],
+                   dtype=np.intp)
+    k, r, c = np.nonzero(_MASKS[ids])
+    return x + 4 * k + c, y + r
+
+
 class Canvas:
     def __init__(self, width: int, height: int, background: Color = (255, 255, 255)):
         self.width = width
         self.height = height
         self.img = np.zeros((height, width, 3), dtype=np.uint8)
         self.img[:, :] = background
-        # every color the draw calls used (a palette hint for save_bmp;
-        # direct .img writers must call invalidate_colors())
-        self.colors = {tuple(int(v) for v in background)}
 
-    def _use(self, color: Color) -> None:
-        self.colors.add((int(color[0]), int(color[1]), int(color[2])))
-
-    def invalidate_colors(self) -> None:
-        """Call after writing .img directly: disables the palette hint."""
-        self.colors = None
-
-    def point(self, x: int, y: int, color: Color) -> None:
-        if 0 <= x < self.width and 0 <= y < self.height:
-            if self.colors is not None:
-                self._use(color)
-            self.img[y, x] = color
+    def _box(self, x0: int, y0: int, x1: int, y1: int, color: Color) -> None:
+        """Fill the box with corners (x0, y0) and (x1, y1), in any order,
+        clipped to the image."""
+        xa, xb = max(0, min(x0, x1)), min(self.width - 1, max(x0, x1))
+        ya, yb = max(0, min(y0, y1)), min(self.height - 1, max(y0, y1))
+        if xa <= xb and ya <= yb:
+            self.img[ya : yb + 1, xa : xb + 1] = color
 
     def hline(self, x0: int, x1: int, y: int, color: Color) -> None:
-        if not (0 <= y < self.height):
-            return
-        x0, x1 = max(0, min(x0, x1)), min(self.width - 1, max(x0, x1))
-        if x0 > x1:
-            return  # fully clipped: keep the palette hint unpolluted
-        if self.colors is not None:
-            self._use(color)
-        self.img[y, x0 : x1 + 1] = color
+        self._box(x0, y, x1, y, color)
 
     def vline(self, x: int, y0: int, y1: int, color: Color) -> None:
-        if not (0 <= x < self.width):
-            return
-        y0, y1 = max(0, min(y0, y1)), min(self.height - 1, max(y0, y1))
-        if y0 > y1:
-            return
-        if self.colors is not None:
-            self._use(color)
-        self.img[y0 : y1 + 1, x] = color
+        self._box(x, y0, x, y1, color)
 
-    def rect(self, x0: int, y0: int, x1: int, y1: int, color: Color,
-             fill: bool = True) -> None:
-        x0, x1 = min(x0, x1), max(x0, x1)
-        y0, y1 = min(y0, y1), max(y0, y1)
-        if fill:
-            xa, xb = max(0, x0), min(self.width - 1, x1)
-            ya, yb = max(0, y0), min(self.height - 1, y1)
-            if xa <= xb and ya <= yb:
-                if self.colors is not None:
-                    self._use(color)
-                self.img[ya : yb + 1, xa : xb + 1] = color
-        else:
-            self.hline(x0, x1, y0, color)
-            self.hline(x0, x1, y1, color)
-            self.vline(x0, y0, y1, color)
-            self.vline(x1, y0, y1, color)
+    def _points(self, xs: np.ndarray, ys: np.ndarray, color: Color) -> None:
+        ok = (xs >= 0) & (xs < self.width) & (ys >= 0) & (ys < self.height)
+        # one color for every pixel: repeated pixels need no order
+        self.img[ys[ok], xs[ok]] = color
 
     def line(self, x0: int, y0: int, x1: int, y1: int, color: Color) -> None:
         """Bresenham line."""
-        dx = abs(x1 - x0)
-        dy = -abs(y1 - y0)
-        sx = 1 if x0 < x1 else -1
-        sy = 1 if y0 < y1 else -1
-        err = dx + dy
-        x, y = x0, y0
-        while True:
-            self.point(x, y, color)
-            if x == x1 and y == y1:
-                break
-            e2 = 2 * err
-            if e2 >= dy:
-                err += dy
-                x += sx
-            if e2 <= dx:
-                err += dx
-                y += sy
+        xs, ys, _ = line_pixels(x0, y0, x1, y1)
+        self._points(xs, ys, color)
 
-    def circle(self, cx: int, cy: int, r: int, color: Color) -> None:
-        x, y, d = r, 0, 1 - r
-        while x >= y:
-            for px, py in ((x, y), (y, x), (-x, y), (-y, x),
-                           (x, -y), (y, -x), (-x, -y), (-y, -x)):
-                self.point(cx + px, cy + py, color)
-            y += 1
-            if d < 0:
-                d += 2 * y + 1
-            else:
-                x -= 1
-                d += 2 * (y - x) + 1
-
-    def text(self, x: int, y: int, s: str, color: Color, scale: int = 1) -> None:
-        cx = x
-        for ch in s.upper():
-            bits = _F.get(ch)
-            if bits is None:
-                bits = _F[" "]
-            for r in range(5):
-                for c in range(3):
-                    if bits[r * 3 + c] == "1":
-                        if scale == 1:
-                            self.point(cx + c, y + r, color)
-                        else:
-                            self.rect(
-                                cx + c * scale, y + r * scale,
-                                cx + c * scale + scale - 1,
-                                y + r * scale + scale - 1, color,
-                            )
-            cx += 4 * scale
+    def text(self, x: int, y: int, s: str, color: Color) -> None:
+        self._points(*text_pixels(x, y, s), color)
 
     @staticmethod
-    def text_width(s: str, scale: int = 1) -> int:
-        return 4 * scale * len(s)
+    def text_width(s: str) -> int:
+        return 4 * len(s)
 
     def save_bmp(self, path: str) -> None:
         from .bmp import write_bmp
 
-        write_bmp(path, self.img, color_hint=self.colors)
+        write_bmp(path, self.img)

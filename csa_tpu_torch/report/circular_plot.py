@@ -170,7 +170,6 @@ def draw_circular_alignment_plot(
     digits = len(str(seqsize))
     diameter += 2 * (6 * digits + 6)
     cv = Canvas(diameter, diameter)
-    cv.invalidate_colors()  # ring gradients write .img directly below
     xc = (diameter + 1) // 2
     yc = (diameter + 1) // 2
 

@@ -77,12 +77,24 @@ def test_rotated_fasta_bytes(name, tmp_path):
         (tmp_path / "jax.fasta").read_bytes() == rotated.read_bytes()
 
 
+# the benchmark's Primates inputs: each record turned by a seed
+BENCH_PRIMATES = [f"bench-primates-{seed}"
+                  for seed in (2**31 + 5, 3 * 2**40 + 1, 3200000300)]
+
+
 @pytest.mark.parametrize("name", ["Primates", "tiny/t1", "tiny/a-gc-1",
-                                  "tiny/a-repeat-0"])
+                                  "tiny/a-repeat-0"] + BENCH_PRIMATES)
 def test_block_artifacts_bytes(name, tmp_path):
     """-Blocks.csv, -positions.txt, -imagemap.txt and -Blocks.bmp from the
     port's rotation result and writer equal the JAX package's."""
-    src = FIX / f"{name}.txt"
+    if name in BENCH_PRIMATES:
+        from perfbench.data import rotated_fasta
+
+        src = tmp_path / "Primates.txt"
+        rotated_fasta.make({"file": "Primates.txt"},
+                           int(name.rsplit("-", 1)[1]), str(src))
+    else:
+        src = FIX / f"{name}.txt"
     outs = {}
     for tag in ("jax", "port"):
         d = tmp_path / tag
@@ -117,6 +129,24 @@ def test_circular_plot_bytes(name, tmp_path):
     assert glog == wlog
     assert (tmp_path / "port.bmp").read_bytes() == \
         (tmp_path / "jax.bmp").read_bytes()
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 700), (37, 1), (40, 300),
+                                   (402, 1110)])
+def test_rle8_encode_bytes(shape):
+    """The port's RLE8 encoder against the JAX package's: runs of every
+    length across row ends, runs longer than 255, single pixels."""
+    from csa_tpu.report.bmp import _rle8_encode as jrle
+    from csa_tpu_torch.report.bmp import _rle8_encode
+
+    rng = np.random.default_rng(sum(shape))
+    for trial in range(4):
+        # run lengths from 1 to 600 over the flat image, values of 0-3
+        n = shape[0] * shape[1]
+        lens = rng.integers(1, 600 if trial % 2 else 4, size=n)
+        vals = rng.integers(0, 4, size=n, dtype=np.uint8)
+        img = np.repeat(vals, lens)[:n].reshape(shape)
+        assert _rle8_encode(img) == jrle(img), trial
 
 
 @pytest.mark.parametrize("tool", ["C", "S", "M", "integrity"])
