@@ -7,8 +7,9 @@ by the native host library (``native``), or by the numpy
 prefix-doubling twin (``numpy``, also the ``native`` route's fallback
 when the library is missing).  The attachment statistics are host
 sweeps, the native C++ kernel on the ``device`` and ``native`` routes
-when it is built and otherwise the numpy twin, and the grouping is
-``_group_border_nodes``.  The host parts (:class:`BorderNode`,
+when it is built and otherwise the numpy twin, and so is the grouping
+(``native.anchor_group``, or its twin ``_group_border_nodes``).  The
+host parts (:class:`BorderNode`,
 :class:`LinearIndex`, the sweeps and the grouping) are the port's own
 copies of those in ``csa_tpu.align.anchors``.
 """
@@ -252,7 +253,37 @@ def compute_border_nodes(encoded_rotated: Sequence[np.ndarray], device=None,
                                        idx.num_seqs)
         att, lb2 = res if res is not None else _attach_numpy(idx)
     with PROFILER.phase("align.anchors.group"):
-        return _group_border_nodes(idx, att, lb2)
+        runs = None
+        if backend != "numpy":
+            runs = native.anchor_group(idx.seq_of, idx.pos_of, att, lb2,
+                                       idx.num_seqs)
+        if runs is None:
+            nodes = _group_border_nodes(idx, att, lb2)
+        else:
+            nodes = _border_nodes_from_runs(*runs[:3], idx.num_seqs)
+    grouped = runs[3] if runs is not None else int(np.count_nonzero(att >= 1))
+    PROFILER.add("anchors.grouped_entries", grouped)
+    PROFILER.add("anchors.border_nodes", len(nodes))
+    return nodes
+
+
+def _border_nodes_from_runs(depths: np.ndarray, offsets: np.ndarray,
+                            positions: np.ndarray, k: int) -> List[BorderNode]:
+    """:class:`BorderNode` lists from ``native.anchor_group``'s flat
+    arrays: one ``tolist`` of the positions, cut by the offsets into k
+    runs a node.  The loops are ``map`` calls: no bytecode runs while
+    the tens of thousands of run lists are made, so the cyclic collector,
+    which Python 3.12 starts only between bytecodes, passes over them
+    once rather than every 700 allocations (on Primates 10 young and 1
+    middle collection against 89 and 8, and at times a full one, for a
+    list comprehension)."""
+    flat = positions.tolist()
+    offs = offsets.tolist()
+    runs = list(map(flat.__getitem__, map(slice, offs[:-1], offs[1:])))
+    n = len(depths)
+    per_node = map(runs.__getitem__,
+                   map(slice, range(0, n * k, k), range(k, n * k + 1, k)))
+    return list(map(BorderNode, depths.tolist(), per_node))
 
 
 def _group_border_nodes(

@@ -106,6 +106,12 @@ def _bind() -> Optional[ctypes.CDLL]:
         ctypes.c_int32, ctypes.c_int32,
         ctypes.c_void_p, ctypes.c_void_p,
     ]
+    lib.csa_anchor_group.restype = ctypes.c_int32
+    lib.csa_anchor_group.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
     lib.csa_rotation_analyze.restype = ctypes.c_int32
     lib.csa_rotation_analyze.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
@@ -311,7 +317,7 @@ def linear_index(s: np.ndarray, sigma: int):
 def anchor_attach(seq_of: np.ndarray, lcp: np.ndarray, cap: np.ndarray,
                   k: int):
     """Native mstat/attachment stats over the linear suffix index;
-    returns (att, lb2) int64 arrays or None if no lib (numpy twin in
+    returns (att, lb2) int32 arrays or None if no lib (numpy twin in
     csa_tpu_torch/align/anchors.py)."""
     lib = _load()
     if lib is None:
@@ -326,7 +332,42 @@ def anchor_attach(seq_of: np.ndarray, lcp: np.ndarray, cap: np.ndarray,
         s32.ctypes.data, l32.ctypes.data, c32.ctypes.data, int(k), m,
         att.ctypes.data, lb2.ctypes.data,
     )
-    return att.astype(np.int64), lb2.astype(np.int64)
+    return att, lb2
+
+
+def anchor_group(seq_of: np.ndarray, pos_of: np.ndarray, att: np.ndarray,
+                 lb2: np.ndarray, k: int):
+    """Native grouping of the sorted suffix entries into border nodes
+    (numpy twin: csa_tpu_torch/align/anchors.py::_group_border_nodes).
+    Returns ``(depths, offsets, positions, grouped)`` or None if no lib:
+    node ``t`` has depth ``depths[t]`` and, in sequence ``s``, the
+    positions ``positions[offsets[t * k + s]:offsets[t * k + s + 1]]``;
+    ``grouped`` counts the entries with ``att >= 1``."""
+    lib = _load()
+    if lib is None:
+        return None
+    m = len(att)
+    s32 = np.ascontiguousarray(seq_of, dtype=np.int32)
+    p32 = np.ascontiguousarray(pos_of, dtype=np.int32)
+    a32 = np.ascontiguousarray(att, dtype=np.int32)
+    l32 = np.ascontiguousarray(lb2, dtype=np.int32)
+    if not len(s32) == len(p32) == len(l32) == m:
+        raise ValueError("seq_of, pos_of, att and lb2 differ in length")
+    if m and (l32.min() < 0 or l32.max() >= m or s32.min() < 0
+              or s32.max() >= k):
+        raise ValueError("lb2 must index the entries, seq_of one of k")
+    cap = m // max(k, 1) + 1  # a node holds at least k entries
+    depths = np.empty(cap, dtype=np.int32)
+    offsets = np.empty(cap * k + 1, dtype=np.int32)
+    positions = np.empty(m, dtype=np.int32)
+    counts = np.zeros(3, dtype=np.int64)
+    n = lib.csa_anchor_group(
+        s32.ctypes.data, p32.ctypes.data, a32.ctypes.data, l32.ctypes.data,
+        int(k), m, depths.ctypes.data, offsets.ctypes.data,
+        positions.ctypes.data, counts.ctypes.data,
+    )
+    return (depths[:n], offsets[: n * k + 1], positions[: int(counts[2])],
+            int(counts[0]))
 
 
 def pairwise_nw(a: np.ndarray, b: np.ndarray):

@@ -1256,6 +1256,86 @@ int32_t csa_anchor_attach(const int32_t* seq, const int32_t* lcp,
   return 0;
 }
 
+// Border nodes from the attachment stats (the numpy twin is
+// csa_tpu_torch/align/anchors.py::_group_border_nodes, exact): the
+// entries x with att[x] >= 1 are grouped by (lb2, att), in that order;
+// a group that holds every one of the k sequences is a node of depth
+// att, its positions ordered by (seq, pos).  Two stable counting passes
+// (att, then lb2: both small non-negative ints, lb2 an entry index), the
+// entries packed with their keys, make the groups; a full group's
+// positions are counted out by sequence and each sequence's run sorted.
+// Outputs: depth[t] of node t; offsets[t * k + s] where node t's
+// positions in sequence s start in `positions`, offsets[nodes * k] their
+// end; counts = {entries with att >= 1, nodes, positions written}.
+// Capacity: m positions, m / k + 1 nodes.  Returns the node count.
+int32_t csa_anchor_group(const int32_t* seq, const int32_t* pos,
+                         const int32_t* att, const int32_t* lb2, int32_t k,
+                         int32_t m, int32_t* depth, int32_t* offsets,
+                         int32_t* positions, int64_t* counts) {
+  counts[0] = counts[1] = counts[2] = 0;
+  offsets[0] = 0;
+  if (m <= 0 || k <= 0) return 0;
+  struct Entry {
+    int32_t lb2, att, seq, pos;
+  };
+  // one scan for both histograms, then the att pass straight from the
+  // inputs (x ascending) and the lb2 pass over the packed entries
+  int32_t max_att = 0;
+  for (int32_t x = 0; x < m; ++x)
+    if (att[x] > max_att) max_att = att[x];
+  std::vector<int32_t> by_att(static_cast<size_t>(max_att) + 2, 0);
+  std::vector<int32_t> by_lb2(static_cast<size_t>(m) + 1, 0);
+  for (int32_t x = 0; x < m; ++x)
+    if (att[x] >= 1) {
+      ++by_att[att[x] + 1];
+      ++by_lb2[lb2[x] + 1];
+    }
+  for (int32_t v = 0; v <= max_att; ++v) by_att[v + 1] += by_att[v];
+  for (int32_t v = 0; v < m; ++v) by_lb2[v + 1] += by_lb2[v];
+  const int32_t n = by_lb2[m];
+  counts[0] = n;
+  // default-initialized: every slot is written by its pass
+  std::unique_ptr<Entry[]> tmp(new Entry[n]), cur(new Entry[n]);
+  for (int32_t x = 0; x < m; ++x)
+    if (att[x] >= 1) tmp[by_att[att[x]]++] = {lb2[x], att[x], seq[x], pos[x]};
+  for (int32_t i = 0; i < n; ++i) cur[by_lb2[tmp[i].lb2]++] = tmp[i];
+
+  std::vector<int32_t> stamp(k, -1), at(k + 1);
+  int32_t nodes = 0, written = 0;
+  for (int32_t g0 = 0; g0 < n;) {
+    const Entry& e0 = cur[g0];
+    int32_t g1 = g0 + 1;
+    while (g1 < n && cur[g1].lb2 == e0.lb2 && cur[g1].att == e0.att) ++g1;
+    int32_t seen = 0;
+    if (g1 - g0 >= k)
+      for (int32_t i = g0; i < g1; ++i)
+        if (stamp[cur[i].seq] != g0) {
+          stamp[cur[i].seq] = g0;
+          ++seen;
+        }
+    if (seen == k) {
+      std::fill(at.begin(), at.end(), 0);
+      for (int32_t i = g0; i < g1; ++i) ++at[cur[i].seq + 1];
+      int32_t* off = offsets + static_cast<int64_t>(nodes) * k;
+      for (int32_t s = 0; s < k; ++s) {
+        at[s + 1] += at[s];
+        off[s] = written + at[s];
+      }
+      for (int32_t i = g0; i < g1; ++i)
+        positions[written + at[cur[i].seq]++] = cur[i].pos;
+      for (int32_t s = 0; s < k; ++s)
+        std::sort(positions + off[s], positions + written + at[s]);
+      depth[nodes++] = e0.att;
+      written += g1 - g0;
+      offsets[static_cast<int64_t>(nodes) * k] = written;
+    }
+    g0 = g1;
+  }
+  counts[1] = nodes;
+  counts[2] = written;
+  return nodes;
+}
+
 // Linear suffix index of one concatenated string (the alignment-phase
 // anchor workload: csa_tpu/align/anchors.py::build_linear_index, the
 // re-derivation of the reference's tree surgery
