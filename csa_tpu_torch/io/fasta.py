@@ -23,16 +23,27 @@ The original characters are preserved for output.
 from __future__ import annotations
 
 import io as _io
+import locale
 import sys
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, TextIO
 
 import numpy as np
 
+from ..utils import PROFILER
+
 MAX_SEQUENCES = 64  # reference: csamsa.c:23 MAXNUMBEROFSEQS (64-bit seq masks)
 
-_ACGT = set("ACGT")
-_IUPAC = set("RYSWKMDHBVN")
+# One translate pass over a record body (csamsa.c:482-503): ACGT and the
+# IUPAC codes are kept as upper case, the skipped bytes are deleted, and
+# every other byte becomes _INVALID, which drops the record.
+_KEPT = b"ACGTRYSWKMDHBVN"
+_SKIPPED = b"\n\r\0- "
+_INVALID = b"\xff"
+_NORMALIZE = bytearray(_INVALID * 256)
+for _b in _KEPT + _KEPT.lower():
+    _NORMALIZE[_b] = _b & ~0x20  # an ASCII letter's upper case
+_NORMALIZE = bytes(_NORMALIZE)
 
 #: normalized alphabet order used by the whole engine: A=0 C=1 G=2 T=3 '-'=4
 ALPHABET = "ACGT-"
@@ -79,24 +90,19 @@ class FastaError(RuntimeError):
     pass
 
 
-def _parse_record_body(body: str) -> Optional[str]:
-    """Validate/normalize one record body; return None if invalid or empty.
-
-    Reference semantics (csamsa.c:482-503): stop-and-drop on the first
-    character outside the accepted set.
-    """
-    out = []
-    for ch in body:
-        if ch in "\n\r\0- ":
-            continue
-        up = ch.upper() if "a" <= ch <= "z" else ch
-        if up in _ACGT or up in _IUPAC:
-            out.append(up)
-        else:
-            return None  # invalid character -> whole record dropped
-    if not out:
-        return ""
-    return "".join(out)
+def _read_bytes(path_or_file):
+    """The input as bytes, and how its headers decode: a path or a binary
+    stream with the codec text mode would use, a text stream's ``str``
+    losslessly through UTF-8."""
+    if hasattr(path_or_file, "read"):
+        data = path_or_file.read()
+    else:
+        with open(path_or_file, "rb") as f:
+            data = f.read()
+    if isinstance(data, str):
+        return data.encode("utf-8", "surrogatepass"), "utf-8", \
+            "surrogatepass"
+    return data, locale.getpreferredencoding(False), "replace"
 
 
 def load_fasta(
@@ -111,41 +117,45 @@ def load_fasta(
     Parity with reference ``LoadSequences`` (csamsa.c:433-519): invalid and
     empty records are skipped with a note, at most ``max_sequences`` records
     are loaded, and fewer than ``min_sequences`` valid records raises.
+    The input is parsed as one byte buffer: a record runs from a ``>`` to
+    the next, its header to its first ``\\r`` or ``\\n``, and its body is
+    validated and upper-cased by one ``bytes.translate``.
     """
-    if hasattr(path_or_file, "read"):
-        data = path_or_file.read()
-    else:
-        with open(path_or_file, "r", errors="replace") as f:
-            data = f.read()
+    data, encoding, errors = _read_bytes(path_or_file)
+    PROFILER.add("io.fasta_bytes", len(data))
     log = log if log is not None else _io.StringIO()
 
     seqs = SequenceSet()
-    start = data.find(">")
-    if start < 0:
+    pos = data.find(b">")
+    if pos < 0:
         raise FastaError("No sequences in file")
-    chunks = data[start:].split(">")
-    idx = 0
-    for chunk in chunks:
-        if not chunk:
+    idx = dropped = 0
+    while pos >= 0:
+        head = pos + 1
+        pos = data.find(b">", head)
+        stop = pos if pos >= 0 else len(data)
+        if head == stop:
             continue
-        nl = len(chunk)
-        for j, ch in enumerate(chunk):
-            if ch in "\r\n":
+        nl = stop
+        for eol in (b"\n", b"\r"):
+            j = data.find(eol, head, nl)
+            if j >= 0:
                 nl = j
-                break
-        desc = chunk[:nl]
-        body = _parse_record_body(chunk[nl:])
+        desc = data[head:nl].decode(encoding, errors)
+        body = data[nl:stop].translate(_NORMALIZE, _SKIPPED)
         idx += 1
         shown = (desc[:40] + " " * max(0, 40 - len(desc)))[:40]
-        if body is None:
+        if _INVALID in body:
             print(f"# {idx:02d} [{shown}] INVALID_CHARS", file=log)
+            dropped += 1
             continue
-        if body == "":
+        if not body:
             print(f"# {idx:02d} [{shown}] EMPTY", file=log)
+            dropped += 1
             continue
         print(f"# {idx:02d} [{shown}] OK ({len(body)} characters)", file=log)
         seqs.names.append(desc)
-        seqs.texts.append(body)
+        seqs.texts.append(body.decode("ascii"))
         if len(seqs) == max_sequences:
             print(
                 f"> WARNING: Current version only supports up to "
@@ -153,6 +163,7 @@ def load_fasta(
                 file=log,
             )
             break
+    PROFILER.add("io.fasta_records_dropped", dropped)
     if len(seqs) < min_sequences:
         raise FastaError("Not enough valid sequences found")
     return seqs
