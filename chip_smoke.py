@@ -1040,10 +1040,12 @@ def _copy_item(item):
                  for x in item)
 
 
-def _capture_rounds(msa, profile, fio, name):
+def _capture_rounds(runner, config, profile, fio, name):
     """The gap DP's rounds of ``name`` (at the fixture's rotations) as the
     device route batches them with both gates at 0: the fill inputs of
     every launch, copied (the host state changes them after)."""
+    import numpy as np
+
     rounds = []
     real = profile.profile_paths
 
@@ -1053,20 +1055,17 @@ def _capture_rounds(msa, profile, fio, name):
 
     seqs = fio.load_fasta(str(FIX / f"{name}.txt"), log=io.StringIO())
     rotations = rotations_of(fio, FIX / f"{name}-Rotated.fasta")
-    saved = {k: os.environ.get(k) for k in ("CSA_TPU_DEVICE_MIN_CELLS",
-                                            "CSA_TPU_BATCH_MIN_CELLS")}
-    os.environ.update({k: "0" for k in saved})
+    rotated = [np.roll(e, -int(r))
+               for e, r in zip(seqs.encoded_all(), rotations)]
+    saved = config.run_config()
+    config.set_run_config(config.RunConfig(device_min_cells=0,
+                                           batch_min_cells=0))
     profile.profile_paths = spy
     try:
-        msa.align(seqs, rotations, device="cuda", backend="device",
-                  log=io.StringIO())
+        runner.run_alignment(rotated, device="cuda", log=io.StringIO())
     finally:
         profile.profile_paths = real
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k)
-            else:
-                os.environ[k] = v
+        config.set_run_config(saved)
     return rounds
 
 
@@ -1135,7 +1134,7 @@ def _r_walls(tmp: Path, name: str):
     return walls, out["native"]
 
 
-def phase_routing(cli, rot, kernels, fio, msa, profile, native, tools_files,
+def phase_routing(cli, kernels, fio, runner, profile, native, tools_files,
                   config, mbp_walls):
     """The crossovers behind the port's routing defaults: a merge (the
     native host fill against one profile_path launch), a round (the
@@ -1160,7 +1159,7 @@ def phase_routing(cli, rot, kernels, fio, msa, profile, native, tools_files,
     batches = {"synthetic": [[item(n, n) for _ in range(g)]
                              for g, n in ROUTING_ROUNDS]}
     for name in ("Primates", "Set3"):
-        batches[name] = _capture_rounds(msa, profile, fio, name)
+        batches[name] = _capture_rounds(runner, config, profile, fio, name)
         merges[name] = _merge_points(
             np, native, profile, [it for r in batches[name] for it in r], 2)
     rounds = {}
@@ -1233,13 +1232,13 @@ def phase_routing(cli, rot, kernels, fio, msa, profile, native, tools_files,
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         copy_fixture(tmp, "Primates")
-        os.environ["CSA_TPU_AUTO_DEVICE_MIN"] = "0"
+        threshold, cli.AUTO_DEVICE_MIN_CHARS = cli.AUTO_DEVICE_MIN_CHARS, 0
         kernels.reset_counts()
         try:
             _, wall = run_port_cli(cli, tmp, ["Primates.txt", "--backend",
                                               "auto"])
         finally:
-            os.environ.pop("CSA_TPU_AUTO_DEVICE_MIN")
+            cli.AUTO_DEVICE_MIN_CHARS = threshold
         counts = dict(kernels.COUNTS)
         check((tmp / "Primates-Rotated.fasta").read_bytes()
               == (FIX / "Primates-Rotated.fasta").read_bytes()
@@ -1274,7 +1273,7 @@ def phase_routing(cli, rot, kernels, fio, msa, profile, native, tools_files,
         "auto_crossover_chars": crossover(r_pts),
         "defaults": {"device_min_cells": defaults.device_min_cells,
                      "batch_min_cells": defaults.batch_min_cells,
-                     "auto_device_min_chars": rot.AUTO_DEVICE_MIN_CHARS},
+                     "auto_device_min_chars": cli.AUTO_DEVICE_MIN_CHARS},
         "synthetic_merges": [
             {"R": R, "C": C, "host_ms": h, "card_ms": c}
             for (R, C), (_, h, c) in zip(ROUTING_SHAPES, synth_pts)],
@@ -2182,7 +2181,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from csa_tpu_torch import cli, config, kernels, native
-    from csa_tpu_torch.align import msa
+    from csa_tpu_torch.align import runner
     from csa_tpu_torch.dp import band, nw, profile, seqpar
     from csa_tpu_torch.index import engine, graphs, mscan
     from csa_tpu_torch.io import fasta as fio
@@ -2202,7 +2201,7 @@ def main() -> int:
     mbp_native, mbp_single_s, mbp_walls = phase_mbp(cli, rot, kernels, fio)
     mbp_full = phase_mbp_full(cli, kernels)
     mbp5 = phase_mbp5(cli, rot, kernels, fio)
-    routing = phase_routing(cli, rot, kernels, fio, msa, profile, native,
+    routing = phase_routing(cli, kernels, fio, runner, profile, native,
                             tools_files, config, mbp_walls)
     phase_band(band, stats)
     phase_seqpar(seqpar, profile, band, kernels, native)

@@ -326,6 +326,8 @@ def _group_border_nodes(
     rs = run_starts[run_keep]
     re = run_ends[run_keep]
     rg = run_group[run_keep]
+    if not len(rg):
+        return nodes
     cuts = np.nonzero(np.concatenate([[True], rg[1:] != rg[:-1]]))[0]
     # emit plain int lists: the list machine consumes them directly, and
     # slicing one materialized Python list beats creating thousands of

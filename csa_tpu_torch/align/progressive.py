@@ -20,23 +20,21 @@ with its stale boundaries, merge, DeleteGappedColumns) is
   round's fills to :func:`..dp.profile.profile_paths` as one launch,
   or, with a rank mesh, to :func:`..dp.profile.profile_paths_sharded`
   and the column-sharded :func:`..dp.seqpar.dp_path_seqpar`.  Two gates
-  keep small work on the host: a round's batch below
-  :func:`..config.batch_device_min_cells` cells (no mesh only), and a
-  merge below :func:`..config.device_min_cells` cells where merges go
-  one by one.  Their defaults are the crossovers measured on the H100
-  (:class:`..config.RunConfig`).  Degenerate fills (no rows or no
-  columns) always stay on the host.
+  of the installed :class:`..config.RunConfig` keep small work on the
+  host: a round's batch below ``batch_min_cells`` cells (no mesh only),
+  and a merge below ``device_min_cells`` cells where merges go one by
+  one.  Their defaults are the crossovers measured on the H100.
+  Degenerate fills (no rows or no columns) always stay on the host.
 
-The host merge reads the module globals ``MATCH``, ``MISMATCH``,
-``INDEL`` and ``DOUBLEGAP``, which :func:`csa_tpu_torch.config.set_scoring`
-installs; the fills take the scoring as keyword arguments, and a
-mismatch between the two raises.
+The host merge and the kernels' wrappers score with the installed
+RunConfig's ``scoring``, read once a call.
 
 Char codes: A=0 C=1 G=2 T=3 gap=4.
 """
 
 from __future__ import annotations
 
+from dataclasses import asdict
 from typing import List, Optional
 
 import numpy as np
@@ -49,10 +47,6 @@ from ..utils import PROFILER, sync
 __all__ = ["progressive_dp", "progressive_dp_batched", "BATCH_DIRS_BYTES",
            "BATCH_DIRS_CAP", "MIN_BATCH"]
 
-MATCH = 1
-DOUBLEGAP = 0
-MISMATCH = -1
-INDEL = -1
 GAP = 4
 
 # direction codes
@@ -85,9 +79,9 @@ def sort_sequences_for_dp(gaplens: np.ndarray):
 def default_top_row(scorevector: np.ndarray, i: int) -> np.ndarray:
     """Fresh dp[0][*] boundary: cumulative horizontal gap costs
     (dynamicprogramming.c:969-973)."""
-    sv_gap = scorevector[:, GAP]
-    colgap = DOUBLEGAP * sv_gap + INDEL * (i - sv_gap)
-    return np.concatenate([[np.int64(0)], np.cumsum(colgap)])
+    sc = config.run_config().scoring
+    return profile.default_top_row(scorevector, i, indel=sc.indel,
+                                   doublegap=sc.doublegap)
 
 
 def dp_fill(
@@ -114,10 +108,11 @@ def dp_fill(
     Dispatches to the native host kernel when built (bit-identical);
     falls back to the anti-diagonal numpy sweep.
     """
+    match, mismatch, indel, doublegap = config.run_config().scoring.as_tuple()
     if top_row is None:
         top_row = default_top_row(scorevector, i)
     if edge_rowgap is None:
-        edge_rowgap = INDEL * i
+        edge_rowgap = indel * i
     if len(row_codes) and len(scorevector):
         res = native.dp_fill_dirs(row_codes, scorevector, i, top_row, edge_rowgap)
         if res is not None:
@@ -127,19 +122,19 @@ def dp_fill(
     sv_gap = scorevector[:, GAP]  # (ncols,)
 
     # per-(row j, col c) substitution score and move costs
-    # score(j,c) = MATCH*cnt[char_j] + INDEL*cnt[gap] + MISMATCH*(i - cnt[char_j] - cnt[gap])
+    # score(j,c) = match*cnt[char_j] + indel*cnt[gap] + mismatch*(i - cnt[char_j] - cnt[gap])
     # code 4 (IUPAC N, R, Y, ...) takes a column of zero counts, as the
     # kernels score it (dp/profile.py:_channels)
     counts = np.concatenate(
         [scorevector[:, :4], np.zeros((ncols, 1), scorevector.dtype)], axis=1)
     cnt_char = counts.take(row_codes, axis=1).T  # (nrows, ncols)
     sub = (
-        MATCH * cnt_char
-        + INDEL * sv_gap[None, :]
-        + MISMATCH * (i - cnt_char - sv_gap[None, :])
+        match * cnt_char
+        + indel * sv_gap[None, :]
+        + mismatch * (i - cnt_char - sv_gap[None, :])
     )
-    rowgap = INDEL * i  # scalar, vertical move
-    colgap = DOUBLEGAP * sv_gap + INDEL * (i - sv_gap)  # (ncols,), horizontal
+    rowgap = indel * i  # scalar, vertical move
+    colgap = doublegap * sv_gap + indel * (i - sv_gap)  # (ncols,), horizontal
 
     dp = np.zeros((nrows + 1, ncols + 1), dtype=np.int64)
     dirs = np.zeros((nrows + 1, ncols + 1), dtype=np.int8)
@@ -294,6 +289,7 @@ def delete_gapped_columns(
         )
         if res is not None:
             return res
+    match, mismatch, indel, doublegap = config.run_config().scoring.as_tuple()
     mingaps = numseqs - maxnongaps
     col = 1
     while col <= consize:
@@ -375,10 +371,10 @@ def delete_gapped_columns(
                 mc != 0,
                 mc
                 * (
-                    MATCH * (sc - 1)
-                    + MISMATCH
+                    match * (sc - 1)
+                    + mismatch
                     * (numseqs - (sc + sv_win[:, GAP][:, None]))
-                    + INDEL * sv_win[:, GAP][:, None]
+                    + indel * sv_win[:, GAP][:, None]
                 ),
                 0,
             ).sum()
@@ -387,8 +383,8 @@ def delete_gapped_columns(
                 mg != 0,
                 mg
                 * (
-                    DOUBLEGAP * (sv_win[:, GAP] - 1)
-                    + INDEL * (numseqs - sv_win[:, GAP])
+                    doublegap * (sv_win[:, GAP] - 1)
+                    + indel * (numseqs - sv_win[:, GAP])
                 ),
                 0,
             ).sum()
@@ -416,7 +412,7 @@ def delete_gapped_columns(
                 sc_lead = np.where(
                     lead & ~full_gap,
                     ntoshift
-                    * (DOUBLEGAP * (wg - 1) + INDEL * (numseqs - wg)),
+                    * (doublegap * (wg - 1) + indel * (numseqs - wg)),
                     0,
                 )
                 msrc = moving_i[src]
@@ -424,16 +420,16 @@ def delete_gapped_columns(
                     (~lead & ~full_gap)[:, None] & (msrc[:, :4] != 0),
                     msrc[:, :4]
                     * (
-                        MATCH * (wsc - 1)
-                        + MISMATCH * (numseqs - (wsc + wg[:, None]))
-                        + INDEL * wg[:, None]
+                        match * (wsc - 1)
+                        + mismatch * (numseqs - (wsc + wg[:, None]))
+                        + indel * wg[:, None]
                     ),
                     0,
                 ).sum(axis=1)
                 sc_body_g = np.where(
                     (~lead & ~full_gap) & (msrc[:, GAP] != 0),
                     msrc[:, GAP]
-                    * (DOUBLEGAP * (wg - 1) + INDEL * (numseqs - wg)),
+                    * (doublegap * (wg - 1) + indel * (numseqs - wg)),
                     0,
                 )
                 shifted = int(
@@ -583,7 +579,7 @@ class GapProgressiveState:
         ncols = self.consensussize
         nrows = self.lens[i]
         if ncols != self.prev_consensussize or nrows > self.prev_nrows:
-            self.alloc_rowgap = INDEL * i
+            self.alloc_rowgap = config.run_config().scoring.indel * i
             self.alloc_top = default_top_row(self.scorevector[:ncols], i)
             self.prev_nrows = nrows
         row_codes = np.asarray(self.gap_codes[self.ordered[i]], dtype=np.int64)
@@ -639,28 +635,17 @@ BATCH_DIRS_CAP = 1 << 30
 MIN_BATCH = 2
 
 
-def _check_scoring(sc: dict) -> None:
-    want = config.scoring()
-    if (sc["match"], sc["mismatch"], sc["indel"], sc["doublegap"]) != \
-            want.as_tuple():
-        raise ValueError(
-            f"fill scoring {sc} differs from the installed host scoring "
-            f"{want}; install the RunConfig with csa_tpu_torch.config."
-            f"set_run_config first"
-        )
-
-
-def _fill_to_maps(prep, dp_backend: str, device=None, sc=None):
-    """Run one prepared fill; returns (old_cols, rows) maps.  On the
-    ``device`` route a merge of ``config.device_min_cells()`` cells or
-    more is one launch on ``device``; every other fill takes the native
-    host fill, or the numpy twin when the library is missing
-    (csa_tpu/align/progressive.py:692-716)."""
+def _fill_to_maps(prep, device=None, sc=None):
+    """Run one prepared fill; returns (old_cols, rows) maps.  With a
+    ``device`` (the card may take it) a merge of the installed
+    ``device_min_cells`` or more is one launch there, scored by ``sc``;
+    every other fill takes the native host fill, or the numpy twin when
+    the library is missing (csa_tpu/align/progressive.py:692-716)."""
     row_codes, sv, i, top, erg = prep
     nrows, ncols = len(row_codes), len(sv)
     PROFILER.add("dp_cells", nrows * ncols)
-    if (dp_backend == "device" and nrows and ncols
-            and nrows * ncols >= config.device_min_cells()):
+    if (device is not None and nrows and ncols
+            and nrows * ncols >= config.run_config().device_min_cells):
         PROFILER.add("dp_device_dispatches", 1)
         with PROFILER.phase("align.dp_fill"):
             path = profile.profile_path(row_codes, sv, i, top_row=top,
@@ -676,10 +661,9 @@ def _fill_to_maps(prep, dp_backend: str, device=None, sc=None):
     return _dirs_to_maps(dirs, nrows, ncols)
 
 
-def progressive_dp(gap_codes: List[np.ndarray], *,
-                   dp_backend: str = "numpy") -> List[np.ndarray]:
-    """Align one gap's substrings on the host (``dp_backend`` "native"
-    or "numpy"); returns code strings.  Mirrors ProgressiveDP
+def progressive_dp(gap_codes: List[np.ndarray]) -> List[np.ndarray]:
+    """Align one gap's substrings on the host (the ``native`` and
+    ``numpy`` routes); returns code strings.  Mirrors ProgressiveDP
     (dynamicprogramming.c:906-1171): shortest-first ordering, NW against
     the profile, backtrack merge, DeleteGappedColumns after each merge
     from the third sequence on.  The output is the batched device
@@ -689,7 +673,7 @@ def progressive_dp(gap_codes: List[np.ndarray], *,
         prep = st.prepare()  # once per merge: it advances the state
         if prep is None:
             break
-        st.apply(*_fill_to_maps(prep, dp_backend))
+        st.apply(*_fill_to_maps(prep))
     return st.results()
 
 
@@ -740,32 +724,30 @@ def _giant_to_maps(p, mesh, sc: dict):
 
 
 def progressive_dp_batched(gaps: List[List[np.ndarray]], *, device,
-                           mesh=None, min_batch: int = MIN_BATCH,
-                           match: int = 1, mismatch: int = -1,
-                           indel: int = -1,
-                           doublegap: int = 0) -> List[List[np.ndarray]]:
+                           mesh=None, min_batch: int = MIN_BATCH
+                           ) -> List[List[np.ndarray]]:
     """Align many independent gaps, batching the i-th merge of every gap
     into one launch (alignment.c:179-208).  Output is identical to the
     per-gap progressive DP.
 
     Without a mesh a round's batch is one launch on ``device`` (giants
     above BATCH_DIRS_BYTES go alone, through the per-merge gate), unless
-    its cells stay below ``config.batch_device_min_cells()``: then the
+    its cells stay below the installed ``batch_min_cells``: then the
     whole round runs on the host.  With a mesh
     (:mod:`csa_tpu_torch.parallel.sharded`) the round is split as the
     JAX package splits it: giants go column-sharded to
     :func:`..dp.seqpar.dp_path_seqpar` and a batch is split over the
     ranks (:func:`..dp.profile.profile_paths_sharded`).  Either way a
     batch of fewer than ``min_batch`` merges runs merge by merge through
-    the per-merge gate (``config.device_min_cells()``), on ``device`` or
-    the home rank's.  On a mesh across processes every process runs
-    every round: each giant over its own ranks, each batch split over
-    the ranks of every process and gathered whole to every process, the
-    rest on its own first rank or its host, so the host states stay
-    equal and every process issues the same exchanges."""
-    sc = dict(match=match, mismatch=mismatch, indel=indel,
-              doublegap=doublegap)
-    _check_scoring(sc)
+    the per-merge gate (``device_min_cells``), on ``device`` or the home
+    rank's.  On a mesh across processes every process runs every round:
+    each giant over its own ranks, each batch split over the ranks of
+    every process and gathered whole to every process, the rest on its
+    own first rank or its host, so the host states stay equal and every
+    process issues the same exchanges.  Every fill scores with the
+    installed RunConfig's scoring."""
+    cfg = config.run_config()
+    sc = asdict(cfg.scoring)
     if mesh is not None:
         device = mesh.home
     states = [GapProgressiveState(g) for g in gaps]
@@ -783,9 +765,9 @@ def progressive_dp_batched(gaps: List[List[np.ndarray]], *, device,
         if mesh is None:
             batch, giants = _partition(dev)
             for idx, p in giants:
-                states[idx].apply(*_fill_to_maps(p, "device", device, sc))
+                states[idx].apply(*_fill_to_maps(p, device, sc))
             cells = sum(len(p[0]) * len(p[1]) for _, p in batch)
-            if batch and cells < config.batch_device_min_cells():
+            if batch and cells < cfg.batch_min_cells:
                 host = batch + host
                 batch = []
         else:
@@ -798,9 +780,9 @@ def progressive_dp_batched(gaps: List[List[np.ndarray]], *, device,
                 states[idx].apply(*_path_to_maps(path))
         else:
             for idx, p in batch:
-                states[idx].apply(*_fill_to_maps(p, "device", device, sc))
+                states[idx].apply(*_fill_to_maps(p, device, sc))
         for idx, p in host:
-            states[idx].apply(*_fill_to_maps(p, "numpy"))
+            states[idx].apply(*_fill_to_maps(p))
     return [st.results() for st in states]
 
 

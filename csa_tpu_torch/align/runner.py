@@ -8,8 +8,8 @@ Exact-behavior equivalent of the reference's alignment routines
 :240-255).  Segments, the gap-consistency heuristic and the output
 writer are host code copied from the JAX package.  ``dp_backend``
 picks the route of the anchors' suffix sort and the gap fills, as in
-``csa_tpu``: ``device`` (and ``sharded``, with a mesh) on ``device``,
-the gap fills batched a round at a time behind the gates of
+``csa_tpu``: ``device`` on ``device`` (or over the ranks of a mesh), the
+gap fills batched a round at a time behind the gates of
 :mod:`.progressive`; ``native`` and ``numpy`` on the host, one gap at a
 time (:func:`_run_gaps_host`).
 
@@ -72,9 +72,7 @@ class AlignmentResult:
 
 def run_alignment(rotated_codes: List[np.ndarray], *, device=None,
                   mesh=None, dp_backend: str = "device",
-                  log: Optional[TextIO] = None, match: int = 1,
-                  mismatch: int = -1, indel: int = -1,
-                  doublegap: int = 0) -> AlignmentResult:
+                  log: Optional[TextIO] = None) -> AlignmentResult:
     """PrepareTreeForAlignment + RunAlignment (alignment.c:169-214).
     ``mesh`` (a :class:`csa_tpu_torch.parallel.sharded.Mesh`) spreads the
     gap DP over its ranks, as ``--backend sharded`` does in ``csa_tpu``.
@@ -86,9 +84,8 @@ def run_alignment(rotated_codes: List[np.ndarray], *, device=None,
 
     print("> Preparing tree for alignment...", end="", file=log)
     with PROFILER.phase("align.anchors"):
-        nodes = anchors.compute_border_nodes(
-            rotated_codes, device,
-            backend={"sharded": "device"}.get(dp_backend, dp_backend))
+        nodes = anchors.compute_border_nodes(rotated_codes, device,
+                                             backend=dp_backend)
     with PROFILER.phase("align.machine_init"):
         blist = machine.BorderList(nodes, k)
     print(" ok", file=log)
@@ -124,13 +121,11 @@ def run_alignment(rotated_codes: List[np.ndarray], *, device=None,
             startsegment = startsegment.next
     if deferred:
         gaps = [_gap_codes(seg, rotated_codes) for seg in deferred]
-        if dp_backend in ("device", "sharded"):
+        if dp_backend == "device":
             results = progressive.progressive_dp_batched(
-                gaps, device=device, mesh=mesh, match=match,
-                mismatch=mismatch, indel=indel, doublegap=doublegap,
-            )
+                gaps, device=device, mesh=mesh)
         else:
-            results = _run_gaps_host(gaps, dp_backend)
+            results = _run_gaps_host(gaps)
         for seg, strings in zip(deferred, results):
             print(f"[({seg.mingapsize:<4}-{seg.maxgapsize:>4})", end="",
                   file=log)
@@ -140,14 +135,12 @@ def run_alignment(rotated_codes: List[np.ndarray], *, device=None,
     return AlignmentResult(first, last)
 
 
-def _run_gaps_host(gaps: List[List[np.ndarray]],
-                   dp_backend: str) -> List[List[np.ndarray]]:
+def _run_gaps_host(gaps: List[List[np.ndarray]]) -> List[List[np.ndarray]]:
     """The independent gap DPs on the host, one after another (as
     ``csa_tpu`` runs them: small gaps are bound by the merge and state
     transitions under the interpreter lock, and large ones already use
     both threads of the native fill)."""
-    return [progressive.progressive_dp(g, dp_backend=dp_backend)
-            for g in gaps]
+    return [progressive.progressive_dp(g) for g in gaps]
 
 
 def _gap_codes(segment: Segment, rotated_codes: List[np.ndarray]):

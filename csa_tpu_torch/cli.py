@@ -14,22 +14,22 @@ M         Convert aligned FASTA -> MSF
 ========  ==========================================================
 
 Modes N, R and A run on the route ``--backend`` names (default
-``device``, or ``CSA_TPU_BACKEND``), the routes of ``csa_tpu`` with
-``device`` in the place of ``jax``:
+``device``), the routes of ``csa_tpu`` with ``device`` in the place of
+``jax``; :func:`resolve_routes` turns it, once a job, into the route of
+the rotation and of the alignment phase:
 
 * ``device``: the rotation block stage, the anchors' suffix sort and
   the gap DP on ``--device`` (default ``cuda``).  The gap DP's small
   work stays on the native host library behind two gates, measured on
-  the H100 (:mod:`csa_tpu_torch.config`): a merge below
-  ``--device-min-cells`` cells (``CSA_TPU_DEVICE_MIN_CELLS``), a
-  round's batch below ``CSA_TPU_BATCH_MIN_CELLS`` cells.
+  the H100 (:class:`csa_tpu_torch.config.RunConfig`): a merge below
+  ``--device-min-cells`` cells, a round's batch below
+  ``RunConfig.batch_min_cells`` cells.
 * ``native``: every stage on the port's native host library (its numpy
   twins where it is missing); ``numpy``: the exact numpy engines.
   Neither makes a CUDA call.
 * ``auto``: rotation by size (``device`` at or above
-  ``rotation.pipeline.AUTO_DEVICE_MIN_CHARS`` characters,
-  ``CSA_TPU_AUTO_DEVICE_MIN``; ``native`` below), alignment on the host
-  (``native`` when the library is built, else ``numpy``).
+  :data:`AUTO_DEVICE_MIN_CHARS` characters, ``native`` below),
+  alignment on the ``native`` route.
 * ``sharded``: the rotation block stage (modes N and R) and the
   alignment's gap DP (modes N and A) over a mesh of ``--mesh SEQxPOS``
   ranks (default: one per visible card) laid out on ``--device``'s
@@ -88,8 +88,7 @@ import os
 import sys
 import time
 
-from . import __version__
-from .config import from_jax_config, scoring_kwargs
+from . import __version__, config
 from .console import banner
 from .io import fasta as fio
 from .rotation.chains import INT_MAX
@@ -128,10 +127,32 @@ def _load(args) -> fio.SequenceSet:
     return seqs
 
 
-DEVICE_ROUTES = ("device", "sharded")
+# `auto` crossover: from this many characters in all (8 x 500 kbp) the
+# fresh-process R wall of the device route beats the native route's,
+# measured by chip_smoke.py's phase `routing` on an NVIDIA H100 80GB
+# HBM3, 700.00 W (PERF.md section 5)
+AUTO_DEVICE_MIN_CHARS = 4_000_000
 # the CUDA devices whose context this process has made (it lives as long
 # as the process)
 _CUDA_CONTEXTS = set()
+
+
+def resolve_routes(backend: str, total_chars: int) -> tuple[str, str, bool]:
+    """``--backend`` for a job of ``total_chars`` characters as
+    ``(rotation route, alignment route, sharded)``: a route is
+    ``device``, ``native`` or ``numpy``, and ``sharded`` runs the device
+    routes over the rank mesh.  ``auto`` rotates on the native route
+    below :data:`AUTO_DEVICE_MIN_CHARS` characters and on the device
+    from there, and aligns on the native route.  It does not look for a
+    card: a device route without one fails as ``--backend device``
+    does."""
+    if backend == "auto":
+        rotation = ("native" if total_chars < AUTO_DEVICE_MIN_CHARS
+                    else "device")
+        return rotation, "native", False
+    if backend == "sharded":
+        return "device", "device", True
+    return backend, backend, False
 
 
 def _device(args):
@@ -161,30 +182,16 @@ def _device(args):
     return dev
 
 
-def _resolve_host_backend(backend: str) -> str:
-    """``auto`` for the alignment phase: the native host library when it
-    is built, else numpy (csa_tpu/cli.py:108-117); rotation resolves
-    ``auto`` by size in ``rotation.pipeline``."""
-    if backend != "auto":
-        return backend
-    from . import native
-
-    return "native" if native.available() else "numpy"
-
-
-def run_rotation(args, seqs: fio.SequenceSet):
+def run_rotation(args, seqs: fio.SequenceSet, route: str):
     from .report import blocks_report
     from .rotation import pipeline as rot
     from .utils import PROFILER
 
-    backend = args.backend
-    if backend == "auto":
-        backend = rot.resolve_auto_backend(int(sum(seqs.sizes)))
-    device = _device(args) if backend in DEVICE_ROUTES else None
+    cfg = config.run_config()
+    device = _device(args) if route == "device" else None
     try:
-        res = rot.analyze(seqs, device=device, backend=backend,
-                          pack_w=args.kw["pack_w"],
-                          max_interval=args.kw["max_interval"],
+        res = rot.analyze(seqs, device=device, backend=route,
+                          pack_w=cfg.pack_w, max_interval=cfg.max_interval,
                           log=sys.stdout, mesh=args.rank_mesh)
     except rot.RotationError as e:
         raise SystemExit(f"\n> ERROR: {e}")
@@ -203,8 +210,8 @@ def run_rotation(args, seqs: fio.SequenceSet):
         with PROFILER.phase("rot.artifacts.blocks"):
             blocks_report.write_blocks_artifacts(
                 args.input, seqs, res,
-                min_block_size=args.kw["min_block_size"],
-                max_block_size=args.kw["max_block_size"],
+                min_block_size=cfg.min_block_size,
+                max_block_size=cfg.max_block_size,
             )
     return res
 
@@ -223,32 +230,36 @@ def _parse_mesh(text: str):
     return shape
 
 
-def _mesh(args):
-    """The rank mesh of ``--backend sharded`` on ``--device``'s type."""
-    if args.backend != "sharded":
-        return None
+def _mesh(device):
+    """The rank mesh of ``--backend sharded`` on ``device``'s type."""
     from .parallel.sharded import make_mesh
 
-    devices = [args.device] if args.device.type == "cpu" else None
+    devices = [device] if device.type == "cpu" else None
     try:
-        return make_mesh(shape=args.kw["mesh_shape"], devices=devices)
+        return make_mesh(shape=config.run_config().mesh_shape,
+                         devices=devices)
     except ValueError as e:
         raise SystemExit(f"> ERROR: {e}")
 
 
-def run_alignment(args, seqs: fio.SequenceSet, rotations) -> str:
-    from .align import msa
+def run_alignment(args, seqs: fio.SequenceSet, rotations, route: str) -> str:
+    import numpy as np
+
+    from .align import runner
     from .tools import files as tools_files
     from .utils import PROFILER
 
     alignfile = output_filename(args.input, ALIGNMENT_SUFFIX)
     print("> Running multiple sequence alignment...")
-    backend = _resolve_host_backend(args.backend)
-    device = _device(args) if backend in DEVICE_ROUTES else None
-    result = msa.align(seqs, rotations, device=device, mesh=args.rank_mesh,
-                       backend=backend, **scoring_kwargs(args.kw))
+    device = _device(args) if route == "device" else None
+    rotated = [np.roll(e, -int(r))
+               for e, r in zip(seqs.encoded_all(), rotations)]
+    result = runner.run_alignment(rotated, device=device,
+                                  mesh=args.rank_mesh, dp_backend=route,
+                                  log=sys.stdout)
     with PROFILER.phase("align.save"):
-        msa.save_alignment(seqs, rotations, result, alignfile)
+        runner.save_alignment(alignfile, result, rotated, seqs.names,
+                              rotations)
     rotfile = output_filename(args.input, ROTATIONS_SUFFIX)
     source = rotfile if os.path.exists(rotfile) else args.input
     with PROFILER.phase("align.check_output"):
@@ -282,14 +293,12 @@ def main(argv=None) -> int:
                         help="multi-FASTA file")
     parser.add_argument("--device", default="cuda",
                         help="torch device for modes N/R/A (default cuda)")
-    backends = ["auto", "numpy", "native", "device", "sharded"]
-    env_backend = os.environ.get("CSA_TPU_BACKEND", "device")
-    # csa_tpu's `jax` route is the port's `device`
-    env_backend = {"jax": "device"}.get(env_backend, env_backend)
-    parser.add_argument("--backend", choices=backends, default=env_backend,
-                        help="device: one device (default, or "
-                             "CSA_TPU_BACKEND); native / numpy: the host "
-                             "engines, no CUDA call; auto: rotation by "
+    parser.add_argument("--backend", default="device",
+                        choices=["auto", "numpy", "native", "device",
+                                 "sharded"],
+                        help="device: one device (default); native / "
+                             "numpy: the host engines, no CUDA call; "
+                             "auto: rotation by "
                              "size, alignment on the host; sharded: the "
                              "rotation block stage and the alignment's gap "
                              "DP over a mesh of ranks on --device's type")
@@ -334,11 +343,6 @@ def main(argv=None) -> int:
     parser.add_argument("--version", action="version",
                         version=f"csa-tpu-torch {__version__}")
     args = parser.parse_args(argv)
-    if args.backend not in backends:
-        parser.error(f"CSA_TPU_BACKEND={env_backend!r} is not one of "
-                     f"{', '.join(backends)}")
-
-    from . import config
 
     defaults = config.RunConfig()
     cfg = config.RunConfig(
@@ -353,10 +357,8 @@ def main(argv=None) -> int:
                           if args.device_min_cells is not None
                           else defaults.device_min_cells),
     )
-    # the host code (merge, DGC, native kernels) reads the installed
-    # config; the device code takes its scalars
+    # every phase reads the run's values from the installed config
     config.set_run_config(cfg)
-    args.kw = from_jax_config(cfg)
 
     print(banner("[ csa-tpu-torch: Multiple Circular Sequence Aligner ]"))
 
@@ -403,14 +405,16 @@ def _run(args, mode: str) -> None:
     from .utils import PROFILER
 
     if mode in ("N", "R", "A"):
-        # a device route looks for the card now; auto when it resolves
-        # to one, and --verify-rotations when it starts
-        on_device = args.backend in DEVICE_ROUTES
-        # the world first: the mesh spans it
+        with PROFILER.phase("io.load_fasta"):
+            seqs = _load(args)
+        rotation, alignment, sharded = resolve_routes(
+            args.backend, int(sum(seqs.sizes)))
+        # a job that aligns on the card looks for it now (auto's device
+        # rotation when it starts); the world first: the mesh spans it
         multi = distributed.initialize(
             args.coordinator, args.num_processes, args.process_id,
-            device=_device(args) if on_device else "cpu")
-        args.rank_mesh = _mesh(args)
+            device=_device(args) if alignment == "device" else "cpu")
+        args.rank_mesh = _mesh(args.device) if sharded else None
         if multi:
             world = distributed.current()
             ranks = (args.rank_mesh.size if args.rank_mesh is not None
@@ -418,14 +422,10 @@ def _run(args, mode: str) -> None:
             print(f"> Multi-host runtime: process {world.rank}/{world.size}"
                   f", {ranks} global ranks, backend {world.backend}")
 
-    if mode in ("N", "R", "A"):
-        with PROFILER.phase("io.load_fasta"):
-            seqs = _load(args)
-
     res = None
     if mode in ("N", "R"):
         print("> Building generalized cyclic suffix index...")
-        res = run_rotation(args, seqs)
+        res = run_rotation(args, seqs, rotation)
 
     alignfile = None
     if mode in ("N", "A"):
@@ -434,7 +434,7 @@ def _run(args, mode: str) -> None:
         rotations = (res.rotations if res is not None
                      else np.zeros(len(seqs), dtype=np.int64))
         with PROFILER.phase("align.total"):
-            alignfile = run_alignment(args, seqs, rotations)
+            alignfile = run_alignment(args, seqs, rotations, alignment)
 
     if mode in ("N", "I"):
         from .report import circular_plot

@@ -1,34 +1,23 @@
 """Run-time configuration of the port (its own copy of
 :mod:`csa_tpu.config`).
 
-* :class:`Scoring` is the progressive-DP scoring matrix.  The host merge
-  and DeleteGappedColumns read it through module globals of
-  :mod:`csa_tpu_torch.align.progressive` and the native host library;
-  :func:`set_scoring` installs it into both.  The device fills take it
-  as keyword arguments (:func:`from_jax_config`, :func:`scoring_kwargs`),
-  and ``progressive_dp_batched`` raises when the two disagree.
-* :class:`RunConfig` holds the pipeline-level knobs: block-size and
-  interval bounds, the index engine's k-mer packing width, the rank
-  mesh shape of ``--backend sharded`` and the two gates that decide
-  which gap-DP merges of the ``device`` route go to the card
-  (:func:`device_min_cells`, :func:`batch_device_min_cells`; the
-  ``CSA_TPU_DEVICE_MIN_CELLS`` and ``CSA_TPU_BATCH_MIN_CELLS``
-  variables override them, as in ``csa_tpu``).
-
-:func:`from_jax_config` turns any object with the same attributes (the
-port's :class:`RunConfig`, or the JAX package's) into the scalar keyword
-arguments the port's functions take; it imports nothing of the JAX
-package.
+:class:`RunConfig` holds every value of a run once: the progressive
+DP's scoring matrix (:class:`Scoring`), the block-size and interval
+bounds, the index engine's k-mer packing width, the rank mesh shape of
+``--backend sharded`` and the two gates that decide which gap-DP merges
+of the ``device`` route go to the card.  The CLI builds it from its
+flags and installs it with :func:`set_run_config`, the one installer;
+every phase reads it back with :func:`run_config`.  The host merge
+reads the scoring once a call, the native host library gets it pushed
+(here, and when the library loads), and the kernels' wrappers take it
+as keyword arguments from their callers.
 """
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 
 INT_MAX = 2**31 - 1
-
-SCORING_KEYS = ("match", "mismatch", "indel", "doublegap")
 
 
 @dataclass(frozen=True)
@@ -46,7 +35,8 @@ class Scoring:
 
 @dataclass(frozen=True)
 class RunConfig:
-    """Pipeline-level knobs (CLI flags map 1:1 onto these fields)."""
+    """Every value of a run (the CLI's flags set all but
+    ``batch_min_cells``)."""
 
     scoring: Scoring = Scoring()
     min_block_size: int = 10          # csamsa.c:573
@@ -65,8 +55,6 @@ class RunConfig:
     batch_min_cells: int = 2_097_152
 
 
-DEFAULT_SCORING = Scoring()
-_scoring = DEFAULT_SCORING
 _run_config = RunConfig()
 
 
@@ -75,72 +63,10 @@ def run_config() -> RunConfig:
 
 
 def set_run_config(cfg: RunConfig) -> None:
-    """Install a run's config: its scoring matrix goes into the host DP
-    code, its gates into :func:`device_min_cells` and
-    :func:`batch_device_min_cells` (the other fields reach the port's
-    functions as arguments)."""
+    """Install a run's config; its scoring matrix also goes into the
+    native host library when it is loaded."""
     global _run_config
     _run_config = cfg
-    if cfg.scoring != scoring():
-        set_scoring(cfg.scoring)
-
-
-def device_min_cells() -> int:
-    """Per-merge gate: a merge of fewer cells takes the native host fill."""
-    env = os.environ.get("CSA_TPU_DEVICE_MIN_CELLS")
-    if env:
-        return int(env)
-    return _run_config.device_min_cells
-
-
-def batch_device_min_cells() -> int:
-    """Per-round gate: a round's batch of fewer cells in all runs merge
-    by merge on the host instead of as one launch (no mesh only)."""
-    env = os.environ.get("CSA_TPU_BATCH_MIN_CELLS")
-    if env:
-        return int(env)
-    return _run_config.batch_min_cells
-
-
-def scoring() -> Scoring:
-    return _scoring
-
-
-def set_scoring(s: Scoring) -> None:
-    """Install a scoring matrix into the port's host DP code: rebind the
-    module globals of :mod:`csa_tpu_torch.align.progressive` and push the
-    values into the port's native host library when it is built."""
-    global _scoring
-    _scoring = s
-    from .align import progressive
-
-    progressive.MATCH = s.match
-    progressive.MISMATCH = s.mismatch
-    progressive.INDEL = s.indel
-    progressive.DOUBLEGAP = s.doublegap
     from . import native
 
-    native.push_scoring(s)
-
-
-def from_jax_config(cfg) -> dict:
-    """Scalar kwargs of a run configuration (the port's :class:`RunConfig`
-    or any object with the same attributes)."""
-    sc = cfg.scoring
-    return {
-        "match": int(sc.match),
-        "mismatch": int(sc.mismatch),
-        "indel": int(sc.indel),
-        "doublegap": int(sc.doublegap),
-        "pack_w": int(cfg.pack_w),
-        "max_interval": int(cfg.max_interval),
-        "min_block_size": int(cfg.min_block_size),
-        "max_block_size": int(cfg.max_block_size),
-        "mesh_shape": (tuple(int(n) for n in cfg.mesh_shape)
-                       if cfg.mesh_shape else None),
-    }
-
-
-def scoring_kwargs(kw: dict) -> dict:
-    """The DP scoring subset of :func:`from_jax_config`'s dict."""
-    return {k: kw[k] for k in SCORING_KEYS}
+    native.push_scoring(cfg.scoring)

@@ -27,7 +27,7 @@ runs: the row-by-row closed form of ``csa_tpu/dp/wavefront.py:_row_step``
 of the direction matrix.  Any other device raises.
 
 Scoring is explicit: ``match``, ``mismatch``, ``indel``, ``doublegap``
-(see :func:`csa_tpu_torch.config.from_jax_config`).
+(``progressive_dp_batched`` passes the installed RunConfig's).
 """
 
 from __future__ import annotations

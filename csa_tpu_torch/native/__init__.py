@@ -96,8 +96,8 @@ def _bind() -> Optional[ctypes.CDLL]:
         ctypes.c_int32, ctypes.c_void_p,
         ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p,
     ]
-    lib.csa_set_scoring.restype = None
-    lib.csa_set_scoring.argtypes = [
+    lib.csa_install_scoring.restype = None
+    lib.csa_install_scoring.argtypes = [
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
     ]
     lib.csa_anchor_attach.restype = ctypes.c_int32
@@ -126,11 +126,10 @@ def _bind() -> Optional[ctypes.CDLL]:
     lib.csa_set_mt_threshold.restype = None
     lib.csa_set_mt_threshold.argtypes = [ctypes.c_int64]
     _lib = lib
-    # a scoring installed before the lazy load must reach the kernels
+    # the scoring installed before the lazy load
     from .. import config
 
-    if config.scoring() != config.DEFAULT_SCORING:
-        push_scoring(config.scoring())
+    push_scoring(config.run_config().scoring)
     return _lib
 
 
@@ -138,16 +137,13 @@ def available() -> bool:
     return _load() is not None
 
 
-def push_scoring(s) -> bool:
-    """Install a :class:`csa_tpu_torch.config.Scoring` into the host kernels;
-    returns False when the library is missing (numpy fallback in use)."""
-    lib = _load()
-    if lib is None:
-        return False
-    lib.csa_set_scoring(
-        int(s.match), int(s.mismatch), int(s.indel), int(s.doublegap)
-    )
-    return True
+def push_scoring(s) -> None:
+    """Install a :class:`csa_tpu_torch.config.Scoring` into the host
+    kernels if the library is loaded (:func:`_bind` pushes the installed
+    one when it loads)."""
+    if _lib is not None:
+        _lib.csa_install_scoring(int(s.match), int(s.mismatch),
+                                 int(s.indel), int(s.doublegap))
 
 
 def set_mt_threshold(cells: int) -> bool:

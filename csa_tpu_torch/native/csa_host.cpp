@@ -29,7 +29,7 @@
 
 namespace {
 // progressive-DP scoring (dynamicprogramming.c:16-19 defaults); mutable
-// via csa_set_scoring so the host kernels honor the installed Scoring
+// via csa_install_scoring so the host kernels honor the installed Scoring
 // (csa_tpu_torch/config.py)
 int MATCH = 1;
 int DOUBLEGAP = 0;
@@ -387,7 +387,8 @@ int32_t dp_fill_core(const int8_t* row_codes, int32_t R,
 
 extern "C" {
 
-void csa_set_scoring(int match_, int mismatch_, int indel_, int doublegap_) {
+void csa_install_scoring(int match_, int mismatch_, int indel_,
+                         int doublegap_) {
   MATCH = match_;
   MISMATCH = mismatch_;
   INDEL = indel_;

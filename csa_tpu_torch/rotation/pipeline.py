@@ -9,8 +9,7 @@ filters) has the routes of ``csa_tpu``:
 * ``native``: the native host library's ``csa_rotation_analyze``
   (:func:`..native.rotation_analyze`), or the numpy route when the
   library is missing;
-* ``numpy``: the exact host cyclic index (:mod:`..index.cyclic`);
-* ``auto``: :func:`resolve_auto_backend` by the input's size.
+* ``numpy``: the exact host cyclic index (:mod:`..index.cyclic`).
 
 The chain linking and selection are the exact host code of
 :mod:`csa_tpu_torch.rotation.chains`.  On the ``device`` route a
@@ -21,7 +20,6 @@ device fallback, and it is reported on stderr when taken.
 
 from __future__ import annotations
 
-import os
 import sys
 from dataclasses import dataclass, field
 from typing import List, Optional, TextIO
@@ -35,30 +33,11 @@ from ..utils import PROFILER
 from . import chains as chains_mod
 from .chains import INT_MAX, Block
 
-__all__ = ["analyze", "chain_label", "resolve_auto_backend",
-           "AUTO_DEVICE_MIN_CHARS", "RotationError", "RotationResult"]
+__all__ = ["analyze", "chain_label", "RotationError", "RotationResult"]
 
 
 class RotationError(RuntimeError):
     pass
-
-
-# `auto` crossover: from this many characters in all (8 x 500 kbp) the
-# fresh-process R wall of the device route beats the native route's,
-# measured by chip_smoke.py's phase `routing` on an NVIDIA H100 80GB
-# HBM3, 700.00 W (PERF.md section 5).  CSA_TPU_AUTO_DEVICE_MIN
-# (characters) overrides it.
-AUTO_DEVICE_MIN_CHARS = 4_000_000
-
-
-def resolve_auto_backend(total_chars: int) -> str:
-    """The route ``auto`` takes for ``total_chars`` characters: native
-    below the threshold, device at or above it.  It does not look for a
-    card: a device route without one fails as ``--backend device``
-    does."""
-    threshold = int(os.environ.get("CSA_TPU_AUTO_DEVICE_MIN",
-                                   AUTO_DEVICE_MIN_CHARS))
-    return "native" if total_chars < threshold else "device"
 
 
 @dataclass
@@ -84,15 +63,13 @@ def analyze(
     mesh=None,
 ) -> RotationResult:
     """Optimal rotations of a set of circular sequences, the block stage
-    on ``backend``'s route ("device", "native", "numpy" or "auto").  The
-    console narrative is the JAX package's (reference csamsa.c:274-303).
-    With ``mesh`` (``--backend sharded``) the device route runs over its
+    on ``backend``'s route ("device", "native" or "numpy").  The console
+    narrative is the JAX package's (reference csamsa.c:274-303).  With
+    ``mesh`` (``--backend sharded``) the device route runs over its
     ranks and ``device`` is not used; the host routes use neither."""
     log = log if log is not None else sys.stdout
     sizes = seqs.sizes
     encoded = seqs.encoded_all()
-    if backend == "auto":
-        backend = resolve_auto_backend(int(np.sum(sizes)))
 
     fused = None
     if backend in ("native", "numpy"):

@@ -221,17 +221,25 @@ class PhaseTimer:
     def chrome_events(self, offset_us: float) -> List[dict]:
         """The closed spans that no ``record_function`` range carries, as
         Chrome trace events on a clock ``offset_us`` from
-        ``perf_counter_ns`` (in us), marked ``cat: "csa_span"``."""
+        ``perf_counter_ns`` (in us), marked ``cat: "csa_span"``.  A
+        span's ``dur`` is its end less its start on that clock, both
+        rounded alike, so a span that ends where another starts ends
+        exactly there in the trace too."""
         with self._lock:
             spans = list(self.spans)
         pid, tid = os.getpid(), threading.get_native_id()
-        return [{"ph": "X", "cat": "csa_span", "name": s.name,
-                 "pid": pid, "tid": tid, "ts": s.start / 1e3 + offset_us,
-                 "dur": (s.end - s.start) / 1e3,
-                 "args": {"job": s.job, "parent": (spans[s.parent].name
-                                                   if s.parent >= 0
-                                                   else None)}}
-                for s in spans if not s.ranged and s.end is not None]
+        events = []
+        for s in spans:
+            if s.ranged or s.end is None:
+                continue
+            ts = s.start / 1e3 + offset_us
+            events.append({
+                "ph": "X", "cat": "csa_span", "name": s.name, "pid": pid,
+                "tid": tid, "ts": ts, "dur": (s.end / 1e3 + offset_us) - ts,
+                "args": {"job": s.job, "parent": (spans[s.parent].name
+                                                  if s.parent >= 0
+                                                  else None)}})
+        return events
 
 
 PROFILER = PhaseTimer()

@@ -163,10 +163,7 @@ def _edge(case):
     "many_occurrences_in_one_sequence"])
 def test_native_grouping_matches_the_twin_at_the_edges(case):
     idx, att, lb2, want = _edge(case)
-    # where entries are attached but no group is full, the twin (like
-    # csa_tpu's) raises IndexError: there the loop is the reference
-    has_twin = want > 0 or not np.any(att >= 1)
-    nodes = _assert_same(idx, att, lb2, twin=has_twin)
+    nodes = _assert_same(idx, att, lb2)
     _assert_same(idx, att, lb2, twin=False)
     assert len(nodes) == want
     if case == "many_occurrences_in_one_sequence":

@@ -287,3 +287,78 @@ def test_native_dgc(seed):
     assert outs[0][0] == outs[1][0]
     np.testing.assert_array_equal(outs[0][1], outs[1][1])
     np.testing.assert_array_equal(outs[0][2], outs[1][2])
+
+
+NON_DEFAULT = (3, -2, -4, -1)  # match, mismatch, indel, doublegap
+
+
+@pytest.fixture
+def non_default_twins(monkeypatch):
+    """Both packages under one non-default scoring matrix, each
+    installed with its ``set_run_config``, and the port's native library
+    out of reach, so that its numpy twins score."""
+    from csa_tpu import config as jconfig
+    from csa_tpu_torch import config
+
+    config.set_run_config(config.RunConfig(
+        scoring=config.Scoring(*NON_DEFAULT)))
+    jconfig.set_run_config(jconfig.RunConfig(
+        scoring=jconfig.Scoring(*NON_DEFAULT)))
+    monkeypatch.setattr(native, "_load", lambda: None)
+    yield
+    config.set_run_config(config.RunConfig())
+    jconfig.set_run_config(jconfig.RunConfig())
+
+
+def _gap(seed, k=6):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 4, size=int(rng.integers(15, 50))).astype(
+        np.int8) for _ in range(k)]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_numpy_twins_read_the_installed_scoring(non_default_twins, seed):
+    """The host merge's numpy fill, top row and DGC read the installed
+    RunConfig's scoring: under a non-default matrix they give
+    ``csa_tpu``'s fill and its whole progressive DP."""
+    gap = _gap(seed)
+    rng = np.random.default_rng(100 + seed)
+    sv = rng.integers(0, 4, size=(37, 5)).astype(np.int64)
+    codes = gap[0].astype(np.int64)
+    np.testing.assert_array_equal(progressive.default_top_row(sv, 4),
+                                  jprogressive.default_top_row(sv, 4))
+    got = progressive.dp_fill(codes, sv, 4)
+    want = jprogressive.dp_fill(codes, sv, 4)
+    assert got[0] == want[0]
+    np.testing.assert_array_equal(got[1], want[1])
+    for a, b in zip(progressive.progressive_dp(gap),
+                    jprogressive.progressive_dp(gap, dp_backend="numpy")):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_a_scoring_installed_before_the_library_loads_reaches_it(
+        monkeypatch):
+    """``set_run_config`` before the native library's first load loads
+    nothing; the load pushes the installed matrix, so the native fill
+    scores as the numpy twin does."""
+    from csa_tpu_torch import config
+
+    s = config.Scoring(*NON_DEFAULT)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    config.set_run_config(config.RunConfig(scoring=s))
+    try:
+        assert native._lib is None
+        rng = np.random.default_rng(5)
+        codes = rng.integers(0, 4, size=30).astype(np.int64)
+        sv = rng.integers(0, 3, size=(40, 5)).astype(np.int64)
+        top = progressive.default_top_row(sv, 3)
+        got = native.dp_fill_dirs(codes, sv, 3, top, s.indel * 3)
+        assert native._lib is not None
+        monkeypatch.setattr(native, "_load", lambda: None)
+        want = progressive.dp_fill(codes, sv, 3, top_row=top,
+                                   edge_rowgap=s.indel * 3)
+        assert got[0] == want[0]
+        np.testing.assert_array_equal(got[1], want[1])
+    finally:
+        config.set_run_config(config.RunConfig())

@@ -19,7 +19,7 @@ import torch
 from csa_tpu.align import runner as jrunner
 from csa_tpu.io import fasta as jfio
 from csa_tpu.rotation import pipeline as jrot
-from csa_tpu_torch import native
+from csa_tpu_torch import config, native
 from csa_tpu_torch.align import progressive, runner
 from csa_tpu_torch.dp import profile
 from csa_tpu_torch.io import fasta as tfio
@@ -70,9 +70,14 @@ def _aligned(src, tmp_path, tag):
 
 @pytest.fixture
 def device_route(monkeypatch):
-    """Every merge of the JAX package on its device route."""
+    """Every merge of both packages on its device route: the port's
+    gates in its RunConfig, the JAX package's in its variables."""
+    config.set_run_config(config.RunConfig(device_min_cells=0,
+                                           batch_min_cells=0))
     monkeypatch.setenv("CSA_TPU_DEVICE_MIN_CELLS", "0")
     monkeypatch.setenv("CSA_TPU_BATCH_MIN_CELLS", "0")
+    yield
+    config.set_run_config(config.RunConfig())
 
 
 def test_code4_set_matches_jax_device_route(device_route, tmp_path):

@@ -22,6 +22,7 @@ both packages' blocks report, ROADMAP Queue 3)."""
 
 import ast
 import contextlib
+import functools
 import io
 import pathlib
 
@@ -156,8 +157,10 @@ def test_rotation_equals_csa_tpu(tmp_path, csa_tpu_r5, argv):
                          ids=["whole", "cut"])
 def test_full_pipeline_with_every_merge_on_the_device_fill(
         tmp_path, csa_tpu_full, monkeypatch, dirs_bytes):
-    for var in ("CSA_TPU_DEVICE_MIN_CELLS", "CSA_TPU_BATCH_MIN_CELLS"):
-        monkeypatch.setenv(var, "0")
+    # both gates at 0: the merge gate by its flag, the round gate in the
+    # RunConfig the CLI builds
+    monkeypatch.setattr(config, "RunConfig", functools.partial(
+        config.RunConfig, batch_min_cells=0))
     if dirs_bytes is not None:
         monkeypatch.setattr(progressive, "BATCH_DIRS_BYTES", dirs_bytes)
     giants = []
@@ -173,7 +176,8 @@ def test_full_pipeline_with_every_merge_on_the_device_fill(
     monkeypatch.setattr(PROFILER, "enabled", False)
     PROFILER.reset()
     text, files = _run_cli(cli.main, tmp_path, FULL, [],
-                           PORT_ROUTES[0] + ["--profile"])
+                           PORT_ROUTES[0] + ["--profile",
+                                             "--device-min-cells", "0"])
     _, counters = chip_smoke.profile_table(text)
     assert counters["dp_device_dispatches"] > 0
     assert (max(giants) > 0) == (dirs_bytes is not None)

@@ -1,7 +1,7 @@
 """The port's routing against ``csa_tpu``'s: the routes of ``--backend``
-(``numpy``, ``native``, ``device``; ``auto``), the gap-DP gates behind
-``--device-min-cells`` and their environment overrides, and the native
-library's rotation and linear-index entries.
+(``numpy``, ``native``, ``device``; ``auto``), the gap-DP gates of the
+installed RunConfig (``--device-min-cells``), and the native library's
+rotation and linear-index entries.
 
 Each route of the port is held to the same route of the JAX package
 (``device`` to ``jax``) on seeded ACGT sets and a small fixture:
@@ -12,6 +12,8 @@ its numpy fill raises.  Everything runs on the CPU; the host routes are
 also run through the CLI with ``--device cuda`` (its default), where
 they must make no CUDA call."""
 
+import dataclasses
+import functools
 import io
 import pathlib
 
@@ -45,7 +47,6 @@ TINY = REPO / "tests" / "fixtures" / "tiny"
 BIG = str(1 << 62)
 # the port's route and the JAX package's route it is held to
 ROUTES = [("numpy", "numpy"), ("native", "native"), ("device", "jax")]
-GATE_ENV = ("CSA_TPU_DEVICE_MIN_CELLS", "CSA_TPU_BATCH_MIN_CELLS")
 
 
 @pytest.fixture(autouse=True)
@@ -109,11 +110,19 @@ def test_route_matches_jax_route(tmp_path, name, route, jax_route):
         _run(src, tmp_path, "jax", jax_route)
 
 
+def _gates(merge, batch):
+    """Install both packages' RunConfig with these gap-DP gates."""
+    config.set_run_config(config.RunConfig(device_min_cells=int(merge),
+                                           batch_min_cells=int(batch)))
+    jconfig.set_run_config(jconfig.RunConfig(device_min_cells=int(merge),
+                                             batch_min_cells=int(batch)))
+
+
 @pytest.fixture
-def jax_device_route(monkeypatch):
-    """Every merge of the JAX package on its device route."""
-    for k in GATE_ENV:
-        monkeypatch.setenv(k, "0")
+def jax_device_route():
+    """Every merge of either package's device route on its device fill
+    (the JAX package's is the contract of the tests that use it)."""
+    _gates(0, 0)
 
 
 @pytest.mark.parametrize("name", ["iupac3", "iupac4", "seed1", "seed2"])
@@ -161,8 +170,7 @@ def _rotated_codes(src):
                                          (BIG, "0"), ("0", BIG)],
                          ids=["all_card", "all_host", "merge_gate_only",
                               "round_gate_only"])
-def test_gates_route_as_jax_counts(monkeypatch, tmp_path, name, merge,
-                                   batch):
+def test_gates_route_as_jax_counts(tmp_path, name, merge, batch):
     """Both gates at 0 (every merge on the card), above every merge
     (every merge on the host) and one of each: the aligned rows equal
     the host route's, and the device dispatches equal ``csa_tpu``'s
@@ -171,8 +179,7 @@ def test_gates_route_as_jax_counts(monkeypatch, tmp_path, name, merge,
     want = runner.render_alignment(
         runner.run_alignment(codes, dp_backend="native", log=io.StringIO()),
         codes)
-    monkeypatch.setenv("CSA_TPU_DEVICE_MIN_CELLS", merge)
-    monkeypatch.setenv("CSA_TPU_BATCH_MIN_CELLS", batch)
+    _gates(merge, batch)
     rows, n = _dispatches("torch", codes)
     jrows, jn = _dispatches("jax", codes)
     assert rows == [r.tolist() for r in want] == jrows
@@ -191,25 +198,29 @@ def _one_gap(seed=11, k=5):
         np.int8) for _ in range(k)]
 
 
-@pytest.mark.parametrize("source", ["flag", "env"])
+@pytest.mark.parametrize("source", ["flag", "run_config"])
 def test_merge_gate_reaches_routing(monkeypatch, tmp_path, source):
-    """``--device-min-cells`` (through the CLI's RunConfig) and
-    ``CSA_TPU_DEVICE_MIN_CELLS`` decide every single merge: 0 sends each
-    to the card, a gate above every merge none, as ``csa_tpu`` counts."""
+    """``--device-min-cells`` (through the CLI's RunConfig) and a
+    RunConfig installed with ``set_run_config`` decide every single
+    merge: 0 sends each to the card, a gate above every merge none, as
+    ``csa_tpu`` counts."""
     src = _source(tmp_path, "a-diverge-1")
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv("CSA_TPU_BATCH_MIN_CELLS", "0")
     gap = _one_gap()
     counts = {}
     for gate in ("0", BIG):
         if source == "flag":
             assert cli.main(["A", src.name, "--device", "cpu",
                              "--device-min-cells", gate]) == 0
+            # the round gate has no flag: at 0 every round of one merge
+            # meets the merge gate
+            config.set_run_config(dataclasses.replace(
+                config.run_config(), batch_min_cells=0))
             jconfig.set_run_config(jconfig.RunConfig(
-                device_min_cells=int(gate)))
+                device_min_cells=int(gate), batch_min_cells=0))
         else:
-            monkeypatch.setenv("CSA_TPU_DEVICE_MIN_CELLS", gate)
-        assert config.device_min_cells() == int(gate)
+            _gates(gate, 0)
+        assert config.run_config().device_min_cells == int(gate)
         for pkg in ("torch", "jax"):
             prof = JPROFILER if pkg == "jax" else PROFILER
             prof.reset()
@@ -228,25 +239,24 @@ def test_merge_gate_reaches_routing(monkeypatch, tmp_path, source):
     assert counts["torch", BIG] == counts["jax", BIG] == 0
 
 
-def test_env_overrides_the_flag(monkeypatch, tmp_path):
+def test_the_flag_sets_the_gate(monkeypatch, tmp_path):
+    """``--device-min-cells`` is the merge gate the run reads; the round
+    gate keeps its default."""
     src = _source(tmp_path, "a-diverge-1")
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv("CSA_TPU_DEVICE_MIN_CELLS", "7")
-    monkeypatch.setenv("CSA_TPU_BATCH_MIN_CELLS", "9")
     assert cli.main(["A", src.name, "--device", "cpu",
                      "--device-min-cells", "123"]) == 0
     assert config.run_config().device_min_cells == 123
-    assert config.device_min_cells() == 7
-    assert config.batch_device_min_cells() == 9
+    assert config.run_config().batch_min_cells == \
+        config.RunConfig().batch_min_cells
 
 
 @pytest.mark.parametrize("batch", ["0", BIG])
-def test_round_gate_reaches_routing(monkeypatch, batch):
-    """``CSA_TPU_BATCH_MIN_CELLS`` decides whether a round's batch is one
-    launch (0) or runs on the host (above it), as ``csa_tpu`` counts."""
+def test_round_gate_reaches_routing(batch):
+    """The round gate decides whether a round's batch is one launch (0)
+    or runs on the host (above it), as ``csa_tpu`` counts."""
     gaps = [_one_gap(seed) for seed in range(4)]
-    monkeypatch.setenv("CSA_TPU_DEVICE_MIN_CELLS", "0")
-    monkeypatch.setenv("CSA_TPU_BATCH_MIN_CELLS", batch)
+    _gates(0, batch)
     counts = []
     outs = []
     for pkg in ("torch", "jax"):
@@ -267,18 +277,31 @@ def test_round_gate_reaches_routing(monkeypatch, batch):
     assert outs[0] == outs[1]
 
 
-@pytest.mark.parametrize("env,total,want", [
-    (None, -1, "native"), (None, 0, "device"), ("1000", 999, "native"),
-    ("1000", 1000, "device"), ("1000", 10**9, "device")])
-def test_resolve_auto_backend(monkeypatch, env, total, want):
-    """Native below the threshold, device at or above it; the default
-    threshold is AUTO_DEVICE_MIN_CHARS (``total`` counts from it)."""
-    if env is None:
-        monkeypatch.delenv("CSA_TPU_AUTO_DEVICE_MIN", raising=False)
-        total += rot.AUTO_DEVICE_MIN_CHARS
+@pytest.mark.parametrize("threshold,total,want", [
+    (None, -1, "native"), (None, 0, "device"), (1000, 999, "native"),
+    (1000, 1000, "device"), (1000, 10**9, "device")])
+def test_resolve_auto_backend(monkeypatch, threshold, total, want):
+    """``auto`` rotates on the native route below the threshold and on
+    the device at or above it, and aligns on the native route; the
+    default threshold is AUTO_DEVICE_MIN_CHARS (``total`` counts from
+    it)."""
+    if threshold is None:
+        total += cli.AUTO_DEVICE_MIN_CHARS
     else:
-        monkeypatch.setenv("CSA_TPU_AUTO_DEVICE_MIN", env)
-    assert rot.resolve_auto_backend(total) == want
+        monkeypatch.setattr(cli, "AUTO_DEVICE_MIN_CHARS", threshold)
+    assert cli.resolve_routes("auto", total) == (want, "native", False)
+
+
+@pytest.mark.parametrize("backend,want", [
+    ("device", ("device", "device", False)),
+    ("sharded", ("device", "device", True)),
+    ("native", ("native", "native", False)),
+    ("numpy", ("numpy", "numpy", False))])
+def test_resolve_routes(backend, want):
+    """Every other ``--backend`` whatever the size: ``sharded`` is the
+    device route over the mesh."""
+    for total in (0, cli.AUTO_DEVICE_MIN_CHARS, 10**12):
+        assert cli.resolve_routes(backend, total) == want
 
 
 @pytest.fixture
@@ -295,20 +318,21 @@ def no_cuda(monkeypatch):
 
 @pytest.mark.parametrize("mode", ["N", "R", "A"])
 @pytest.mark.parametrize("how", ["native", "numpy", "auto_native",
-                                 "env_numpy"])
+                                 "numpy_gate_0"])
 def test_host_routes_make_no_cuda_call(no_cuda, monkeypatch, tmp_path, mode,
                                        how):
     """The CLI at its default ``--device cuda`` on a host route: no CUDA
-    call, and the fixture's output."""
+    call, and the fixture's output; a merge gate of 0 does not send a
+    host route's merges to the card."""
     name = "a-diverge-1"
     src = _source(tmp_path, name)
     monkeypatch.chdir(tmp_path)
     argv = [] if mode == "N" else [mode]
     argv += [src.name]
-    if how == "env_numpy":
-        monkeypatch.setenv("CSA_TPU_BACKEND", "numpy")
+    if how == "numpy_gate_0":
+        argv += ["--backend", "numpy", "--device-min-cells", "0"]
     elif how == "auto_native":
-        monkeypatch.setenv("CSA_TPU_AUTO_DEVICE_MIN", BIG)
+        monkeypatch.setattr(cli, "AUTO_DEVICE_MIN_CHARS", int(BIG))
         argv += ["--backend", "auto"]
     else:
         argv += ["--backend", how]
@@ -330,7 +354,7 @@ def test_device_route_without_a_card_exits(monkeypatch, tmp_path, argv):
     non-zero without a CUDA device; nothing runs on the CPU unasked."""
     _source(tmp_path, "a-diverge-1")
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv("CSA_TPU_AUTO_DEVICE_MIN", "0")
+    monkeypatch.setattr(cli, "AUTO_DEVICE_MIN_CHARS", 0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as e:
         cli.main(argv)
@@ -338,15 +362,15 @@ def test_device_route_without_a_card_exits(monkeypatch, tmp_path, argv):
     assert not (tmp_path / "a-diverge-1-Rotated.fasta").exists()
 
 
-@pytest.mark.parametrize("env,ok", [("jax", True), ("native", True),
-                                    ("tpu", False)])
-def test_backend_env_default(monkeypatch, tmp_path, env, ok):
-    """``CSA_TPU_BACKEND`` sets the default route (``jax`` meaning the
-    port's ``device``); a value that is no route is refused."""
+@pytest.mark.parametrize("backend,ok", [("device", True),
+                                        ("native", True), ("jax", False),
+                                        ("tpu", False)])
+def test_backend_flag_sets_the_route(tmp_path, monkeypatch, backend, ok):
+    """``--backend`` takes the port's routes (``device`` where
+    ``csa_tpu`` says ``jax``); a value that is no route is refused."""
     src = _source(tmp_path, "a-diverge-1")
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv("CSA_TPU_BACKEND", env)
-    argv = ["R", src.name, "--device", "cpu"]
+    argv = ["R", src.name, "--device", "cpu", "--backend", backend]
     if ok:
         assert cli.main(argv) == 0
         assert (tmp_path / "a-diverge-1-Rotated.fasta").read_bytes() == \
@@ -355,6 +379,79 @@ def test_backend_env_default(monkeypatch, tmp_path, env, ok):
         with pytest.raises(SystemExit) as e:
             cli.main(argv)
         assert e.value.code == 2
+
+
+def _cli_run(tmp_path, tag, argv):
+    """One profiled CLI job on a-diverge-1 in a directory of its own;
+    returns its output files' bytes, its ``dp_device_dispatches`` and
+    the names of its phases."""
+    work = tmp_path / tag
+    work.mkdir()
+    src = _source(work, "a-diverge-1")
+    PROFILER.reset()
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.chdir(work)
+            assert cli.main([src.name, "--device", "cpu", "--profile",
+                             *argv]) == 0
+        counters = dict(PROFILER.counters)
+        phases = set(PROFILER.phases)
+    finally:
+        PROFILER.enabled = False
+        PROFILER.reset()
+    files = {p.name: p.read_bytes() for p in sorted(work.iterdir())
+             if p.name != src.name}
+    return files, counters.get("dp_device_dispatches", 0), phases
+
+
+def _dp_run():
+    """The aligned rows and ``dp_device_dispatches`` of one gap alone
+    (the merge gate decides each of its rounds) and of four gaps
+    together (the round gate decides)."""
+    PROFILER.reset()
+    PROFILER.enabled = True
+    try:
+        outs = [progressive.progressive_dp_batched(gaps, device="cpu")
+                for gaps in ([_one_gap()],
+                             [_one_gap(seed) for seed in range(4)])]
+        n = PROFILER.counters.get("dp_device_dispatches", 0)
+    finally:
+        PROFILER.enabled = False
+        PROFILER.reset()
+    rows = [[[r.tolist() for r in g] for g in out] for out in outs]
+    return rows, n, set()
+
+
+@pytest.mark.parametrize("name,value,how", [
+    ("CSA_TPU_BACKEND", "numpy", "cli"),
+    ("CSA_TPU_AUTO_DEVICE_MIN", "0", "cli_auto"),
+    ("CSA_TPU_DEVICE_MIN_CELLS", BIG, "dp"),
+    ("CSA_TPU_BATCH_MIN_CELLS", BIG, "dp")])
+def test_removed_variables_change_nothing(monkeypatch, tmp_path, name,
+                                          value, how):
+    """The four variables that once overrode the route and the gates
+    are read no more: each, at a value that would have changed the
+    route or a gate, leaves the output, ``dp_device_dispatches`` and
+    the phases (``rot.block_stage[<route>]`` among them) as they are.
+    Both gates are at 0, so that the device route dispatches."""
+    monkeypatch.setattr(config, "RunConfig", functools.partial(
+        config.RunConfig, batch_min_cells=0))
+    _gates(0, 0)
+    argv = ["--device-min-cells", "0"]
+    if how == "cli_auto":
+        argv += ["--backend", "auto"]
+
+    def run(tag):
+        return _dp_run() if how == "dp" else _cli_run(tmp_path, tag, argv)
+
+    want = run("without")
+    monkeypatch.setenv(name, value)
+    assert run("with") == want
+    assert (want[1] > 0) == (how != "cli_auto")
+    if how != "dp":
+        stage = {p for p in want[2] if p.startswith("rot.block_stage[")}
+        assert stage == {"rot.block_stage[native]" if how == "cli_auto"
+                         else "rot.block_stage[torch]"}
 
 
 def _encoded(tmp_path, name):

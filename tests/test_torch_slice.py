@@ -22,7 +22,6 @@ from csa_tpu.rotation import pipeline as jrot
 from csa_tpu_torch import cli, kernels
 from csa_tpu_torch import config as tconfig
 from csa_tpu_torch.align import runner
-from csa_tpu_torch.config import from_jax_config, scoring_kwargs
 from csa_tpu_torch.rotation import pipeline as rot
 
 import torch_jax_native
@@ -68,7 +67,6 @@ def _both_packages(name, cfg, tmp_path):
     ``cfg``; returns the two aligned files."""
     seqs = fio.load_fasta(str(FIX / "tiny" / f"{name}.txt"),
                           log=io.StringIO())
-    kw = from_jax_config(cfg)
     outs = []
     config.set_run_config(cfg)
     tconfig.set_run_config(_port_config(cfg))
@@ -78,8 +76,8 @@ def _both_packages(name, cfg, tmp_path):
                 res = jrot.analyze(seqs, backend="jax", cfg=cfg,
                                    log=io.StringIO())
             else:
-                res = rot.analyze(seqs, device="cpu", pack_w=kw["pack_w"],
-                                  max_interval=kw["max_interval"],
+                res = rot.analyze(seqs, device="cpu", pack_w=cfg.pack_w,
+                                  max_interval=cfg.max_interval,
                                   log=io.StringIO())
             codes = [np.roll(e, -int(r))
                      for e, r in zip(seqs.encoded_all(), res.rotations)]
@@ -88,8 +86,7 @@ def _both_packages(name, cfg, tmp_path):
                                                log=io.StringIO())
             else:
                 result = runner.run_alignment(codes, device="cpu",
-                                              log=io.StringIO(),
-                                              **scoring_kwargs(kw))
+                                              log=io.StringIO())
             out = tmp_path / f"{name}-{tag}.fasta"
             save = jrunner.save_alignment if tag == "jax" else \
                 runner.save_alignment

@@ -14,6 +14,7 @@ import subprocess
 import sys
 import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -163,6 +164,21 @@ def test_spans_are_ranges_of_a_running_profiler():
 def _events(path):
     with open(path) as f:
         return [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+
+def test_a_span_ends_on_the_trace_clock_where_the_next_starts():
+    """Spans that meet in ``perf_counter_ns`` meet in the trace too: the
+    first's ``ts + dur`` is the second's ``ts``, at clock offsets whose
+    rounding used to put it up to a fraction of a microsecond past."""
+    rng = np.random.default_rng(19)
+    for _ in range(200):
+        t = _timer()
+        a = int(rng.integers(10**12, 10**13))
+        b = a + int(rng.integers(10**9, 10**10))
+        t.record("startup.imports", a, b)
+        t.record("cli.main", b, b + 10**9)
+        first, second = t.chrome_events(float(rng.uniform(1.4e12, 1.5e12)))
+        assert first["ts"] + first["dur"] == second["ts"]
 
 
 def test_a_cli_process_writes_its_spans_on_the_trace_clock(tmp_path):
