@@ -127,20 +127,24 @@ Phases, one JSON line each on stdout:
                 exchange on CUDA ranks against one process and ending
                 with shutdown(); every process must exit 0 and no world
                 may abort (with 2 or more cards, 4 worlds over NCCL too);
- 17. fused:     the fused routes (the block stage and the anchors'
-                linear sort, one CUDA graph replay and one download a
-                call, below FUSED_MAX_CHARS): Primates and Set3 through
-                the CLI in mode N with the gate forced open (twice: the
-                second run must replay only, 3 mscan launches) and shut,
-                every file against the fixtures; the staged and fused
-                walls of rotation_final and linear_suffix_order on
+ 17. fused:     the fused routes (the block stage on a key the process
+                has already run, and the anchors' linear sort below
+                FUSED_MAX_CHARS; one CUDA graph replay and one download
+                a call): Primates and Set3 through the CLI in mode N
+                from keys the process has not run (the staged routes,
+                the linear gate shut), then twice on the fused routes
+                (the recorded key, the gate open: one block program and
+                no retry, then replays only, 3 mscan launches), every
+                file against the fixtures; the staged and fused walls
+                of the block stage and linear_suffix_order on
                 4 x 16 kbp, Primates, Set3 and 8 x 50 / 200 / 500 kbp,
                 each pair equal: a key's first call (no graph, no cached
-                guess: what a CLI job pays) and warm calls (replays);
-                the gate the first calls give (crossover) and the one
-                the warm calls would; the graphs' memory; a
-                torch.profiler trace of each block stage on Primates and
-                Set3 (launches, idle share, gaps, the heaviest kernels).
+                guess: what a CLI job would pay fused), warm calls
+                (replays) and the capture with the recorded guesses; the
+                gate the first calls give (crossover) and the one the
+                warm calls would; the graphs' memory; a torch.profiler
+                trace of each block stage on Primates and Set3
+                (launches, idle share, gaps, the heaviest kernels).
 Then the card's name and power limit, one short summary line a kernel
 shape, one of the sharded rotation's walls, one of the distributed
 phase, one of the routing phase (its crossovers and the card) and one
@@ -1346,33 +1350,52 @@ def fused_gate(engine, gate):
         engine.FUSED_MAX_CHARS = saved
 
 
-def _route_walls(engine, fn):
-    """Warm in-process walls (ms) of ``fn`` on the staged and the fused
-    route, in turns (staged, fused, fused, staged) after a warm-up of
-    each (the fused one captures its graphs): what a process that calls
-    one key again pays."""
+def _forget_keys(engine, graphs):
+    """No captured graph and no cached guess: every key is one this
+    process has not run."""
+    graphs.clear()
+    for cache in (engine._TDEEP_CACHE, engine._CAPS_CACHE,
+                  engine._LEVELS_CACHE, engine._LINEAR_LEVELS_CACHE):
+        cache.clear()
+
+
+def _block_routes(engine, enc):
+    """The block stage's staged and fused calls on the card."""
+    return {"staged": lambda: engine.rotation_final_staged(enc, "cuda"),
+            "fused": lambda: engine._rotation_final_fused(enc, "cuda")}
+
+
+def _linear_routes(engine, s):
+    """The linear sort's calls on the card with its gate shut and open."""
+    def call(gate):
+        def fn():
+            with fused_gate(engine, gate):
+                return engine.linear_suffix_order(s, "cuda")
+        return fn
+    return {"staged": call(0), "fused": call(FUSED_ON)}
+
+
+def _route_walls(routes):
+    """Warm in-process walls (ms) of ``routes`` (route -> call), in
+    turns (staged, fused, fused, staged) after a warm-up of each (the
+    fused one captures its graphs): what a process that calls one key
+    again pays."""
     walls = {"staged": [], "fused": []}
     for route in ("staged", "fused", "staged", "fused", "fused", "staged"):
-        with fused_gate(engine, 0 if route == "staged" else FUSED_ON):
-            walls[route].append(wall_ms(fn)[1])
+        walls[route].append(wall_ms(routes[route])[1])
     return {r: w[1:] for r, w in walls.items()}
 
 
-def _first_walls(engine, graphs, fn):
-    """In-process walls (ms) of ``fn``'s first call of a key on each
-    route, in turns (staged, fused, fused, staged): the fused route with
-    no graph and no cached guess (what a CLI job, one process a call,
-    pays on top of the process's start), the staged one as it always
-    runs (it keeps nothing between calls)."""
+def _first_walls(engine, graphs, routes):
+    """In-process walls (ms) of a key's first call on each route, in
+    turns (staged, fused, fused, staged): the fused route with no graph
+    and no cached guess (what a CLI job, one process a call, would pay
+    on top of the process's start), the staged one as it always runs."""
     walls = {"staged": [], "fused": []}
     for route in ("staged", "fused", "fused", "staged"):
         if route == "fused":
-            graphs.clear()
-            for cache in (engine._TDEEP_CACHE, engine._CAPS_CACHE,
-                          engine._LEVELS_CACHE, engine._LINEAR_LEVELS_CACHE):
-                cache.clear()
-        with fused_gate(engine, 0 if route == "staged" else FUSED_ON):
-            walls[route].append(wall_ms(fn)[1])
+            _forget_keys(engine, graphs)
+        walls[route].append(wall_ms(routes[route])[1])
     return walls
 
 
@@ -1425,13 +1448,15 @@ def _device_trace(torch, fn):
 
 def phase_fused(cli, engine, graphs, kernels, fio, tools_files):
     """The fused routes (one CUDA graph replay and one download a call):
-    Primates and Set3 through the CLI in mode N on the fused routes (the
-    gate forced open; twice, the second run replaying only) and on the
-    staged routes, against the fixtures; mscan's launches and the
-    replays; the staged-against-fused walls of rotation_final and
-    linear_suffix_order, first calls and warm calls, and the gates they
-    give; the graphs' memory; a trace of the staged block stage (the
-    picture before) and of the fused one on Primates and Set3."""
+    Primates and Set3 through the CLI in mode N on the staged routes
+    (keys the process has not run, the linear gate shut), then twice on
+    the fused ones (the key recorded, the gate open; the second run
+    replaying only), against the fixtures; mscan's launches and the
+    replays; the staged-against-fused walls of the block stage and
+    linear_suffix_order, first calls, warm calls and the block stage's
+    capture with recorded guesses, and the gates they give; the graphs'
+    memory; a trace of the staged block stage (the picture before) and
+    of the fused one on Primates and Set3."""
     import numpy as np
     import torch
     from csa_tpu_torch.utils import PROFILER
@@ -1448,8 +1473,11 @@ def phase_fused(cli, engine, graphs, kernels, fio, tools_files):
     graphs.run = spy
     try:
         for name in ("Primates", "Set3"):
-            for tag, gate in (("fused", FUSED_ON), ("fused_again", FUSED_ON),
-                              ("staged", 0)):
+            # the staged run records the key, so the block stage then
+            # takes the fused route
+            _forget_keys(engine, graphs)
+            for tag, gate in (("staged", 0), ("fused", FUSED_ON),
+                              ("fused_again", FUSED_ON)):
                 with tempfile.TemporaryDirectory() as tmp, \
                         fused_gate(engine, gate):
                     tmp = Path(tmp)
@@ -1481,11 +1509,12 @@ def phase_fused(cli, engine, graphs, kernels, fio, tools_files):
                            text)}
                 if tag == "staged":
                     check(not keys and not rec["idx_fused_phase"],
-                          f"fused: {name} at gate 0 ran a fused program")
+                          f"fused: {name}'s first run ran a fused program")
                 else:
-                    check(blocks >= 1 and rec["linear_runs"] >= 1
+                    check(blocks == 1 and rec["linear_runs"] >= 1
                           and rec["idx_fused_phase"],
-                          f"fused: {name} did not take the fused routes")
+                          f"fused: {name} did not take the fused routes "
+                          f"with one block program: {rec}")
                 if tag == "fused_again":
                     check(rec["captures"] == 0 and blocks == 1
                           and rec["linear_runs"] == 1,
@@ -1503,16 +1532,12 @@ def phase_fused(cli, engine, graphs, kernels, fio, tools_files):
         padded = len(enc) * engine._bucket(max(len(e) for e in enc))
         s = _anchor_string(np, enc)
         total = engine._bucket(len(s))
-        blk_fn = lambda: engine.rotation_final(enc, "cuda")  # noqa
-        lin_fn = lambda: engine.linear_suffix_order(s, "cuda")  # noqa
-        blk = _route_walls(engine, blk_fn)
-        lin = _route_walls(engine, lin_fn)
-        with fused_gate(engine, FUSED_ON):
-            fused = blk_fn()
-            lin_f = lin_fn()
-        with fused_gate(engine, 0):
-            staged = blk_fn()
-            lin_s = lin_fn()
+        blk_fns = _block_routes(engine, enc)
+        lin_fns = _linear_routes(engine, s)
+        blk = _route_walls(blk_fns)
+        lin = _route_walls(lin_fns)
+        fused, staged = blk_fns["fused"](), blk_fns["staged"]()
+        lin_f, lin_s = lin_fns["fused"](), lin_fns["staged"]()
         check(fused.num_collected == staged.num_collected
               and np.array_equal(fused.final_start, staged.final_start)
               and np.array_equal(fused.final_positions,
@@ -1526,10 +1551,15 @@ def phase_fused(cli, engine, graphs, kernels, fio, tools_files):
                           if key[1][:3] == ("block", k, n_max)), default=0),
             "linear": max((b for key, b, _, _ in graphs.entries()
                            if key[1][:2] == ("linear", total)), default=0)}
-        blk1 = _first_walls(engine, graphs, blk_fn)
-        lin1 = _first_walls(engine, graphs, lin_fn)
+        # a key's capture with the guesses its staged calls recorded:
+        # what a warm process pays once, at the key's second call
+        graphs.clear()
+        blk_capture = wall_ms(blk_fns["fused"])[1]
+        blk1 = _first_walls(engine, graphs, blk_fns)
+        lin1 = _first_walls(engine, graphs, lin_fns)
         sets[spec[0]] = {"padded": padded, "linear_total": total,
                          "rotation_final_ms": blk,
+                         "rotation_final_capture_ms": blk_capture,
                          "linear_suffix_order_ms": lin,
                          "rotation_final_first_ms": blk1,
                          "linear_suffix_order_first_ms": lin1}
@@ -1537,9 +1567,10 @@ def phase_fused(cli, engine, graphs, kernels, fio, tools_files):
             first_pts.append((size, min(first["fused"]),
                               min(first["staged"])))
             warm_pts.append((size, min(warm["fused"]), min(warm["staged"])))
-    # the default serves the entry points, which call each function once
-    # a process: the gate from the first calls; the warm one is what a
-    # process calling one key again would take
+    # the linear gate's default serves the anchors, which call the sort
+    # once a job: the gate from the first calls; the warm one is what a
+    # process calling one key again would take (rotation_final's
+    # REPLAY_MAX_CHARS for the block stage)
     cut, gate = _gate(first_pts)
     warm_cut, warm_gate = _gate(warm_pts)
 
@@ -1555,6 +1586,7 @@ def phase_fused(cli, engine, graphs, kernels, fio, tools_files):
            "graph_memory_bytes": memory, "crossover_size": cut,
            "measured_gate": gate, "warm_crossover_size": warm_cut,
            "warm_gate": warm_gate, "default_gate": engine.FUSED_MAX_CHARS,
+           "replay_max_chars": engine.REPLAY_MAX_CHARS,
            "traces": traces,
            "refinements_cached": {
                "block": {str(k): v for k, v in engine._LEVELS_CACHE.items()},
@@ -1572,6 +1604,7 @@ def summary_fused(out) -> None:
         f"lin {ms(v['linear_suffix_order_first_ms'])}"
         for n, v in out["sets"].items())
     warm = ", ".join(f"{n} {ms(v['rotation_final_ms'])} "
+                     f"capture {v['rotation_final_capture_ms']:.1f} "
                      f"lin {ms(v['linear_suffix_order_ms'])}"
                      for n, v in out["sets"].items())
     tr = "; ".join(
@@ -1588,7 +1621,8 @@ def summary_fused(out) -> None:
              for n, v in out["cli"].items() if n.endswith("fused_again")}
     print(f"summary fused ({out['card']}): gate measured "
           f"{out['measured_gate']} (crossover {out['crossover_size']}), "
-          f"default {out['default_gate']}, warm gate {out['warm_gate']}; "
+          f"default {out['default_gate']}, warm gate {out['warm_gate']} "
+          f"(block replay limit {out['replay_max_chars']}); "
           f"first call staged/fused ms: {walls}; warm staged/fused ms: "
           f"{warm}; mscan a replayed run {again}; graph MiB block/linear "
           f"{mem}; traces {tr}; phase {out['seconds']:.1f} s", flush=True)

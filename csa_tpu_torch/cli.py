@@ -58,7 +58,8 @@ start, end, parent phase, job) and prints, after the run, every phase's
 total and self time (without its child phases), a ``TOTAL`` of the
 root phases and the counters (DP cells, device dispatches,
 ``idx.device_reads``: the host's reads of device values in the rotation
-block stage).  The root phase is ``cli.main``, the whole call of
+block stage; ``graph_captures`` and ``graph_replays``: its fused
+route's CUDA graphs).  The root phase is ``cli.main``, the whole call of
 :func:`main`; a process started as the CLI (``python -m
 csa_tpu_torch.cli``, the ``csa-tpu-torch`` script, as the web frontend
 starts one a job) also shows its start-up: ``startup.imports`` (from the

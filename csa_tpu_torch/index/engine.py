@@ -1,6 +1,6 @@
 """Cyclic suffix-array engine on torch tensors (counterpart of the
-single-device paths of :mod:`csa_tpu.index.engine`: the staged one and,
-below ``FUSED_MAX_CHARS``, the single-dispatch programs).
+single-device paths of :mod:`csa_tpu.index.engine`: the staged one and
+the single-dispatch programs, replayed as CUDA graphs).
 
 The algorithm is the JAX package's, stage for stage, with the same padded
 layout: sequences are padded to ``n_max = _bucket(max len)`` and a
@@ -85,7 +85,8 @@ def _tdeep_for(mg0: int, k: int, n_max: int) -> int:
 def _read(fn, *args):
     """``fn(*args)``, which waits for the device and brings a value of
     it to the host: each call counts one in the counter
-    ``idx.device_reads`` (the staged block stage's reads)."""
+    ``idx.device_reads`` (the block stage's reads: the staged route's,
+    or the fused route's one download a program run)."""
     PROFILER.add("idx.device_reads", 1)
     return fn(*args)
 
@@ -230,6 +231,15 @@ def _device_build(encoded: Sequence[np.ndarray], device, *, pack_w: int = 12):
     Returns ``((order, lcp, lengths), (k, n_max, max_group0))`` with
     tensors on ``device``, or ``(None, None)`` when a sequence has
     duplicate rotations (periodic input)."""
+    arrays, aux, _levels = _device_build_levels(encoded, device,
+                                                pack_w=pack_w)
+    return arrays, aux
+
+
+def _device_build_levels(encoded: Sequence[np.ndarray], device, *,
+                         pack_w: int = 12):
+    """:func:`_device_build`'s result and the number of refinement
+    levels it ran."""
     device = torch.device(device)
     k = len(encoded)
     sizes = np.array([len(e) for e in encoded], dtype=np.int64)
@@ -257,7 +267,7 @@ def _device_build(encoded: Sequence[np.ndarray], device, *, pack_w: int = 12):
             ranks.append(rank)
             t += 1
     if nt > 0 and _dup_check(order, rank, lengths, n_max=n_max):
-        return None, None
+        return None, None, t
 
     with PROFILER.phase("idx.lcp"):
         a, b = order[:-1], order[1:]
@@ -270,7 +280,7 @@ def _device_build(encoded: Sequence[np.ndarray], device, *, pack_w: int = 12):
         _raw, lcp = _lcp_tail(off, packed, order, lengths, n_max=n_max,
                               pack_w=pack_w)
         sync(device)
-    return (order, lcp, lengths), (k, n_max, mg0)
+    return (order, lcp, lengths), (k, n_max, mg0), t
 
 
 def _threshold_chans(lcp, idx, n_total: int, pack_w: int):
@@ -414,8 +424,9 @@ class RotationFinal:
 def _collect_tail(order, lcp, lengths, collected, start, end, *, k: int,
                   n_max: int):
     """Compaction, interval expansion, suffix join, uniqueness and
-    positions.  Returns (nb, n_suffix, fstart, fdepth, fpositions) with
-    the final-block fields as host arrays."""
+    positions.  Returns (nb, total_e, n_suffix, fstart, fdepth,
+    fpositions), ``total_e`` the expanded interval members, with the
+    final-block fields as host arrays."""
     n_total = order.shape[0]
     dev = order.device
     n_of = _n_of_flat(lengths, n_max)
@@ -459,7 +470,8 @@ def _collect_tail(order, lcp, lengths, collected, start, end, *, k: int,
     fstart = _read(torch.Tensor.cpu, bstart[fsel]).numpy()
     fdepth = _read(torch.Tensor.cpu, bdepth[fsel]).numpy()
     fpos = _read(torch.Tensor.cpu, positions.reshape(nb, k)[fsel]).numpy()
-    return nb, _read(int, keep_suffix.sum()), fstart, fdepth, fpos
+    return (nb, int(blk.shape[0]), _read(int, keep_suffix.sum()), fstart,
+            fdepth, fpos)
 
 
 def _slim(nb: int, n_suffix: int, start, depth, pos) -> RotationFinal:
@@ -489,16 +501,21 @@ def _slim(nb: int, n_suffix: int, start, depth, pos) -> RotationFinal:
 # guess that was too small.  Every shape that JAX pads to a cap is
 # padded the same way and validated the same way.
 
-# padded size k * _bucket(max len) up to which rotation_final and
-# linear_suffix_order take the fused route.  The default, 0, turns it
-# off: every entry point calls each function once a process (a CLI job,
-# a web job's CLI), and chip_smoke.py's phase `fused` and
-# index/fused_walls.py measured, on an NVIDIA H100 80GB HBM3, 700.00 W
-# (PERF.md section 5), that such a first call is slower fused (a
-# capture) than staged at every size from 4 x 16 kbp to 8 x 500 kbp;
-# only a process that calls one key again gains (a replay).
-# CSA_TPU_FUSED_MAX_CHARS overrides it, read at import as csa_tpu
-# reads it
+# padded size k * _bucket(max len) up to which rotation_final replays
+# the fused block stage on a key this process has already run: the warm
+# crossover that chip_smoke.py's phase `fused` measured on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md section 6): a replay beat the staged call
+# up to 8 x 200 kbp (1,605,632 padded) and lost at 8 x 500 kbp (55.78
+# against 43.23 ms).  A key's first call stays staged: a capture costs
+# more than the staged call at every size measured (Primates 746-1,053
+# against 501-518 ms in a fresh process).
+REPLAY_MAX_CHARS = 1_605_632
+
+# padded size up to which linear_suffix_order takes the fused route.
+# The default, 0, turns it off: in the same measurements its first call
+# was slower fused (a capture) than staged at every size, and a warm
+# replay lost to the staged loop at 8 x 500 kbp (80.50 against 68.53 ms).
+# CSA_TPU_FUSED_MAX_CHARS overrides it, read at import as csa_tpu reads it
 FUSED_MAX_CHARS = int(os.environ.get("CSA_TPU_FUSED_MAX_CHARS", 0))
 
 # the host loop's first guesses (csa_tpu's: tdeep 7, fcap 1024, ecap
@@ -682,10 +699,9 @@ def _rotation_final_fused(encoded: Sequence[np.ndarray], device, *,
         static = dict(k=k, n_max=n_max, pack_w=pack_w, levels=levels,
                       tdeep=tdeep, cap=cap, ecap=ecap, fcap=fcap)
         with PROFILER.phase("idx.fused"):
-            arr = graphs.run(
-                ("block",) + tuple(static.values()),
-                functools.partial(_fused_block_program, **static),
-                (codes, lengths), device)
+            arr = _read(graphs.run, ("block",) + tuple(static.values()),
+                        functools.partial(_fused_block_program, **static),
+                        (codes, lengths), device)
         if arr[-1] > 0 and levels < bound:
             levels = min(bound, levels + LEVELS_STEP)
             continue
@@ -716,20 +732,43 @@ def _rotation_final_fused(encoded: Sequence[np.ndarray], device, *,
                  f[2 * fcap:].reshape(fcap, k)[:n_final])
 
 
+def _record_guesses(key, *, levels: int, mg0: int, nb: int, total_e: int,
+                    n_final: int) -> None:
+    """A staged call's counts for ``key`` (k, n_max) as the fused loop's
+    guesses, rounded as its retries round them, so that the key's first
+    fused run passes every check of the loop; a cached guess only
+    grows."""
+    k, n_max = key
+    _LEVELS_CACHE[key] = max(levels, _LEVELS_CACHE.get(key, 0))
+    _TDEEP_CACHE[key] = max(_tdeep_for(mg0, k, n_max),
+                            _TDEEP_CACHE.get(key, 0))
+    caps = (_pow2_at_least(nb + 1, 4096), _pow2_at_least(total_e + 1),
+            _pow2_at_least(n_final + 1, 1024))
+    _CAPS_CACHE[key] = tuple(map(max, caps, _CAPS_CACHE.get(key, caps)))
+
+
+def _on_card(device) -> bool:
+    """Whether :func:`graphs.run` captures and replays on ``device``."""
+    return torch.device(device).type == "cuda"
+
+
 def rotation_final(encoded: Sequence[np.ndarray], device, *,
                    pack_w: int = 12, mesh=None) -> Optional[RotationFinal]:
     """The rotation block stage: build, collect, filter.  Returns a
     :class:`RotationFinal`, or ``None`` when duplicate rotations demand
     the exact host path (periodic inputs).
 
-    With no mesh and a padded size ``k * _bucket(max len)`` of at most
-    :data:`FUSED_MAX_CHARS` (csa_tpu's gate) the stage is one fused
-    program (:func:`_rotation_final_fused`, a CUDA graph on a card);
-    otherwise it is :func:`rotation_final_staged`.  The output is the
-    same."""
-    padded = len(encoded) * _bucket(max((len(e) for e in encoded),
-                                        default=8))
-    if mesh is None and padded <= FUSED_MAX_CHARS:
+    A call with no mesh, on a CUDA device, of a key ``(k, _bucket(max
+    len))`` that this process has already run, with a padded size of at
+    most :data:`REPLAY_MAX_CHARS`, is one fused program
+    (:func:`_rotation_final_fused`: a capture at the key's second call,
+    then replays of its CUDA graph).  Every other call is
+    :func:`rotation_final_staged`, which records the key and its
+    guesses.  The output is the same."""
+    k = len(encoded)
+    n_max = _bucket(max((len(e) for e in encoded), default=8))
+    if (mesh is None and _on_card(device) and k * n_max <= REPLAY_MAX_CHARS
+            and (k, n_max) in _CAPS_CACHE):
         return _rotation_final_fused(encoded, device, pack_w=pack_w)
     return rotation_final_staged(encoded, device, pack_w=pack_w, mesh=mesh)
 
@@ -739,7 +778,8 @@ def rotation_final_staged(encoded: Sequence[np.ndarray], device, *,
                           mesh=None) -> Optional[RotationFinal]:
     """The staged block stage: the refinement ends as soon as every
     group is a singleton (one host read a level) and the block tables
-    are sized from the data.
+    are sized from the data.  A single-device run records its key's
+    guesses for the fused route (:func:`_record_guesses`).
 
     With ``mesh`` (a :class:`csa_tpu_torch.parallel.sharded.Mesh`) whose
     rank count is a power of two, the build and the collect front run
@@ -750,6 +790,7 @@ def rotation_final_staged(encoded: Sequence[np.ndarray], device, *,
     process's own first rank: each runs the tail (or the whole
     single-device stage) on the same data.  The output is the same."""
     sharded = mesh is not None and mesh.size & (mesh.size - 1) == 0
+    levels = None
     if sharded:
         from ..parallel import collect_sharded, dsort_ladder
 
@@ -758,7 +799,8 @@ def rotation_final_staged(encoded: Sequence[np.ndarray], device, *,
     else:
         if mesh is not None:
             device = mesh.home
-        arrays, aux = _device_build(encoded, device, pack_w=pack_w)
+        arrays, aux, levels = _device_build_levels(encoded, device,
+                                                   pack_w=pack_w)
     if arrays is None:
         return None
     order, lcp, lengths = arrays
@@ -773,8 +815,12 @@ def rotation_final_staged(encoded: Sequence[np.ndarray], device, *,
             front = _collect_front(order, lcp, lengths, **kw)
         sync(order.device)
     with PROFILER.phase("idx.collect_tail"):
-        res = _collect_tail(order, lcp, lengths, *front, k=k, n_max=n_max)
-    return _slim(*res)
+        nb, total_e, n_suffix, *final = _collect_tail(
+            order, lcp, lengths, *front, k=k, n_max=n_max)
+    if levels is not None:
+        _record_guesses((k, n_max), levels=levels, mg0=mg0, nb=nb,
+                        total_e=total_e, n_final=len(final[0]))
+    return _slim(nb, n_suffix, *final)
 
 
 def _linear_refine(rank, real, n, t: int):

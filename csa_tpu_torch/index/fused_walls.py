@@ -9,10 +9,12 @@ times, inside it, the first calls of both functions and the calls after
 them; it also runs the CLI in fresh processes and reads its ``--profile``
 phases.  The routes:
 
-* ``staged``: ``FUSED_MAX_CHARS = 0``, the staged loops (one host read
-  a refinement level);
-* ``fused``: the gate above every set, the fused programs as the tree
-  runs them through :func:`graphs.run`;
+* ``staged``: ``engine.rotation_final_staged`` at every call and the
+  linear sort's gate ``FUSED_MAX_CHARS`` at 0: the staged loops (one
+  host read a refinement level);
+* ``fused``: ``engine._rotation_final_fused`` at every call (a key's
+  first call captures) and the linear gate above every set, the fused
+  programs as the tree runs them through :func:`graphs.run`;
 * ``eager``: the fused programs run plainly on the device at every call
   (no graph), the cost of the static program itself;
 * ``native``: the CLI's ``--backend native`` (CLI runs only).
@@ -62,9 +64,12 @@ def _spy(key, program, inputs, device):
         return program(*(x.to(device) for x in inputs)).cpu().numpy()
     return _run(key, program, inputs, device)
 graphs.run = _spy
-for _name in ("FUSED_MAX_CHARS", "LINEAR_FUSED_MAX_CHARS"):
-    if hasattr(engine, _name):
-        setattr(engine, _name, 0 if a["route"] == "staged" else a["gate"])
+_block = (engine.rotation_final_staged if a["route"] == "staged"
+          else engine._rotation_final_fused)
+def _rotation_final(encoded, device, *, pack_w=12, mesh=None):
+    return _block(encoded, device, pack_w=pack_w)
+engine.rotation_final = _rotation_final
+engine.FUSED_MAX_CHARS = 0 if a["route"] == "staged" else a["gate"]
 """
 
 # a child timing the two functions: the block stage's calls, then the

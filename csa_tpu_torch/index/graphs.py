@@ -15,10 +15,11 @@ one device-to-host copy of the output.  A capture or a replay that fails
 raises; nothing falls back to an eager run.
 
 Kernel launches made while capturing did not run: :data:`kernels.COUNTS`
-gets them back out, and each replay adds them again.  The cache holds at
-most :data:`MAX_GRAPHS` graphs, the least recently used going first; an
-entry's ``pool_bytes`` is the memory its capture reserved and
-``capture_s`` the wall of its warm-up and capture.
+gets them back out, and each replay adds them again.  The profiler's
+counters ``graph_captures`` and ``graph_replays`` count both in a job.
+The cache holds at most :data:`MAX_GRAPHS` graphs, the least recently
+used going first; an entry's ``pool_bytes`` is the memory its capture
+reserved and ``capture_s`` the wall of its warm-up and capture.
 """
 
 from __future__ import annotations
@@ -98,6 +99,7 @@ def _capture(device, program: Callable, inputs: Sequence[torch.Tensor]):
     cap.pool_bytes = torch.cuda.memory_reserved(device) - reserved
     cap.capture_s = time.perf_counter() - t0
     STATS["captures"] += 1
+    PROFILER.add("graph_captures", 1)
     return cap
 
 

@@ -517,6 +517,114 @@ def test_fused_block_stage_replay_matches_staged(cuda, name):
     assert kernels.COUNTS["mscan"] == 3
 
 
+def _forget_keys(monkeypatch):
+    """Empty block-stage guess caches and no captured graph: every key
+    is one this process has not run."""
+    from csa_tpu_torch.index import graphs
+
+    for cache in ("_TDEEP_CACHE", "_CAPS_CACHE", "_LEVELS_CACHE"):
+        monkeypatch.setattr(engine, cache, {})
+    graphs.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["Primates", "Set3"])
+def test_rotation_final_replays_from_its_second_call(cuda, name,
+                                                     monkeypatch):
+    """Three rotation_final calls of one key: the first is staged (no
+    capture; two reads at level 0, one a refinement level, seven in the
+    tail: 14 on Primates), the second captures the fused program once
+    (the guesses the first recorded pass every check: one download),
+    the third replays it (no capture, one device read, mscan's three
+    launches); each equals the staged stage."""
+    from csa_tpu_torch.index import graphs
+    from csa_tpu_torch.utils import PROFILER
+
+    enc = _fixture_encoded(name)
+    want = engine.rotation_final_staged(enc, cuda)
+    _forget_keys(monkeypatch)
+    seen = []
+    PROFILER.enabled = True
+    try:
+        for _ in range(3):
+            PROFILER.reset()
+            captures = graphs.STATS["captures"]
+            kernels.reset_counts()
+            got = engine.rotation_final(enc, cuda)
+            c = PROFILER.counters
+            seen.append((graphs.STATS["captures"] - captures,
+                         c.get("graph_captures", 0),
+                         c.get("graph_replays", 0),
+                         c.get("idx.device_reads", 0),
+                         kernels.COUNTS["mscan"]))
+            _same_final(got, want)
+    finally:
+        PROFILER.enabled = False
+        PROFILER.reset()
+    key = (len(enc), engine._bucket(max(len(e) for e in enc)))
+    assert seen[0] == (0, 0, 0, 9 + engine._LEVELS_CACHE[key], 3)
+    if name == "Primates":
+        assert seen[0][3] == 14
+    assert seen[1][:4] == (1, 1, 1, 1)
+    assert seen[2] == (0, 0, 1, 1, 3)
+
+
+@pytest.mark.cuda
+def test_two_warm_cli_jobs_write_the_fixture(cuda, tmp_path, monkeypatch):
+    """Two mode R jobs on Primates through cli.main in one process: the
+    first runs the block stage staged, the second the fused program;
+    both write the fixture's rotated file byte for byte."""
+    import pathlib
+
+    from csa_tpu_torch import cli, config
+    from csa_tpu_torch.index import graphs
+
+    _forget_keys(monkeypatch)
+    fix = pathlib.Path(__file__).resolve().parent / "fixtures"
+    replays = []
+    try:
+        for i in range(2):
+            d = tmp_path / f"job{i}"
+            d.mkdir()
+            (d / "Primates.txt").write_bytes(
+                (fix / "Primates.txt").read_bytes())
+            monkeypatch.chdir(d)
+            before = graphs.STATS["replays"]
+            assert cli.main(["R", "Primates.txt"]) == 0
+            replays.append(graphs.STATS["replays"] - before)
+            assert (d / "Primates-Rotated.fasta").read_bytes() == \
+                (fix / "Primates-Rotated.fasta").read_bytes()
+    finally:
+        config.set_run_config(config.RunConfig())
+    assert replays == [0, 1]
+
+
+@pytest.mark.cuda
+def test_a_fresh_cli_child_captures_nothing(cuda, tmp_path):
+    """A ``python -m csa_tpu_torch.cli R`` process calls the block stage
+    once: staged, with no capture and no replay, 14 device reads on
+    Primates, and the fixture's rotated file."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    fix = root / "tests" / "fixtures"
+    (tmp_path / "Primates.txt").write_bytes(
+        (fix / "Primates.txt").read_bytes())
+    proc = subprocess.run(
+        [sys.executable, "-m", "csa_tpu_torch.cli", "R", "Primates.txt",
+         "--profile"], cwd=tmp_path, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(root)}, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = proc.stdout + proc.stderr
+    assert "> [profile] idx.device_reads: 14\n" in out
+    assert "graph_captures" not in out and "graph_replays" not in out
+    assert (tmp_path / "Primates-Rotated.fasta").read_bytes() == \
+        (fix / "Primates-Rotated.fasta").read_bytes()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", [0, 1])
 def test_fused_linear_sort_replay_matches_staged(cuda, seed, monkeypatch):

@@ -1,10 +1,12 @@
 """The port's fused routes (csa_tpu_torch.index.engine) against the JAX
 package's single-dispatch programs on the CPU: the fused block stage's
 packed vector element for element against ``_fused_small_program`` at
-the same static parameters, its host loop's retries from small starts,
-the duplicate-rotation branch, the linear twin against
-``_linear_index_device_et``, and the ``FUSED_MAX_CHARS`` gate with its
-environment override.  Integer outputs, exact."""
+the same static parameters, its host loop's retries from small starts
+and from the guesses a staged call records, the duplicate-rotation
+branch, ``rotation_final``'s route (staged at a key's first call, the
+fused program on a card after it), the linear twin against
+``_linear_index_device_et``, and the linear sort's ``FUSED_MAX_CHARS``
+gate with its environment override.  Integer outputs, exact."""
 
 import functools
 import io
@@ -22,6 +24,7 @@ from csa_tpu.index import engine as jengine
 from csa_tpu.io import fasta as fio
 from csa_tpu_torch import kernels
 from csa_tpu_torch.index import engine, graphs
+from csa_tpu_torch.parallel.sharded import make_mesh
 from csa_tpu_torch.utils import PROFILER
 
 import torch_jax_native
@@ -57,9 +60,26 @@ def _encoded(name):
 
 @pytest.fixture(autouse=True)
 def gate_open(monkeypatch):
-    """The fused routes' gate above every set here (its default, 0,
-    turns them off); the tests of the gate set it themselves."""
+    """The linear sort's fused gate above every set here (its default,
+    0, turns the route off); the tests of the gate set it themselves."""
     monkeypatch.setattr(engine, "FUSED_MAX_CHARS", 1 << 62)
+
+
+@pytest.fixture
+def on_card(monkeypatch):
+    """rotation_final's check for a CUDA device stubbed to pass: its
+    fused route runs here, graphs.run running the program eagerly."""
+    monkeypatch.setattr(engine, "_on_card", lambda device: True)
+
+
+@pytest.fixture
+def staged_calls(monkeypatch):
+    """A list that grows by one at each rotation_final_staged call."""
+    seen = []
+    real = engine.rotation_final_staged
+    monkeypatch.setattr(engine, "rotation_final_staged",
+                        lambda *a, **kw: seen.append(1) or real(*a, **kw))
+    return seen
 
 
 @pytest.fixture
@@ -151,15 +171,54 @@ def _same_final(got, want):
 
 @pytest.mark.parametrize("name", ["tiny/t8", "tiny/a-repeat-0", "Primates"])
 def test_rotation_final_fused_matches_jax_and_staged(name, fresh_caches,
-                                                     runs):
+                                                     runs, on_card):
+    """A key's first rotation_final call is staged; the second runs the
+    fused program once; both equal the JAX package's result."""
     enc = _encoded(name)
     want = _jax_final(name)
     kernels.reset_counts()
+    _same_final(engine.rotation_final(enc, "cpu"), want)
+    assert not runs
     got = engine.rotation_final(enc, "cpu")
-    assert runs and all(key[0] == "block" for key in runs)
+    assert len(runs) == 1 and runs[0][0] == "block"
     assert set(kernels.COUNTS.values()) == {0}
     _same_final(got, want)
     _same_final(engine.rotation_final_staged(enc, "cpu"), want)
+
+
+@pytest.mark.parametrize("name", ["Primates", "seed1", "seed2"])
+def test_staged_call_primes_one_fused_run(name, fresh_caches, runs):
+    """The guesses a staged call records let the key's first fused run
+    pass every check of the loop: one program, no retry (Primates
+    overflows csa_tpu's own first ``ecap`` guess without them), equal to
+    the staged result and to csa_tpu's."""
+    enc = _encoded(name)
+    staged = engine.rotation_final_staged(enc, "cpu")
+    key = tuple(engine._fused_inputs(enc)[0].shape)
+    assert key in engine._LEVELS_CACHE and key in engine._TDEEP_CACHE
+    assert key in engine._CAPS_CACHE
+    got = engine._rotation_final_fused(enc, "cpu")
+    assert len(runs) == 1
+    _same_final(got, staged)
+    _same_final(got, _jax_final(name))
+
+
+@pytest.mark.parametrize("where", ["card", "mesh", "cpu"])
+def test_rotation_final_replays_a_key_it_has_run(where, fresh_caches, runs,
+                                                 staged_calls, request):
+    """On a card the first call of a key is staged and each later call
+    runs the fused program; with a mesh, or on the CPU, every call is
+    staged."""
+    if where != "cpu":
+        request.getfixturevalue("on_card")
+    mesh = make_mesh(2, devices=[torch.device("cpu")]) \
+        if where == "mesh" else None
+    enc = _encoded("tiny/t1")
+    for _ in range(3):
+        _same_final(engine.rotation_final(enc, "cpu", mesh=mesh),
+                    _jax_final("tiny/t1"))
+    fused = 2 if where == "card" else 0
+    assert (len(runs), len(staged_calls)) == (fused, 3 - fused)
 
 
 def test_rotation_final_fused_duplicates_return_none(fresh_caches):
@@ -217,7 +276,7 @@ def test_fused_level_guess_misses_and_is_retried(fresh_caches, runs):
     enc = _encoded("seed3")
     key = tuple(engine._fused_inputs(enc)[0].shape)
     engine._LEVELS_CACHE[key] = 1
-    got = engine.rotation_final(enc, "cpu")
+    got = engine._rotation_final_fused(enc, "cpu")
     _same_final(got, jengine.rotation_final_jax(enc))
     levels = [r[LEVELS] for r in runs]
     assert levels[0] == 1 and levels == sorted(levels) and len(levels) > 1
@@ -292,21 +351,21 @@ def test_linear_twin_matches_jax(seed, fresh_caches, runs, monkeypatch):
 
 @pytest.mark.parametrize("side", ["at", "above"])
 def test_fused_gate_on_the_padded_size(side, fresh_caches, runs,
-                                       monkeypatch):
-    """rotation_final takes the fused route up to FUSED_MAX_CHARS padded
-    characters (k * _bucket(max len)), linear_suffix_order up to the
-    padded string; above, the staged routes."""
+                                       staged_calls, on_card, monkeypatch):
+    """rotation_final replays a key it has run up to REPLAY_MAX_CHARS
+    padded characters (k * _bucket(max len)), linear_suffix_order takes
+    the fused route up to FUSED_MAX_CHARS of padded string; above, the
+    staged routes."""
     enc = _encoded("tiny/t1")
     padded = len(enc) * engine._bucket(max(len(e) for e in enc))
-    monkeypatch.setattr(engine, "FUSED_MAX_CHARS",
-                        padded if side == "at" else padded - 1)
-    staged = []
-    real = engine.rotation_final_staged
-    monkeypatch.setattr(engine, "rotation_final_staged",
-                        lambda *a, **kw: staged.append(1) or real(*a, **kw))
-    got = engine.rotation_final(enc, "cpu")
-    _same_final(got, jengine.rotation_final_jax(enc))
-    assert (len(runs), len(staged)) == ((1, 0) if side == "at" else (0, 1))
+    gate = padded if side == "at" else padded - 1
+    monkeypatch.setattr(engine, "REPLAY_MAX_CHARS", gate)
+    monkeypatch.setattr(engine, "FUSED_MAX_CHARS", gate)
+    for _ in range(2):
+        got = engine.rotation_final(enc, "cpu")
+        _same_final(got, jengine.rotation_final_jax(enc))
+    assert (len(runs), len(staged_calls)) == \
+        ((1, 1) if side == "at" else (0, 2))
     # a linear string of the padded size
     s = np.random.default_rng(0).integers(1, 5, size=padded)
     del runs[:]
@@ -315,31 +374,36 @@ def test_fused_gate_on_the_padded_size(side, fresh_caches, runs,
 
 
 def test_fused_gate_env_override():
+    """CSA_TPU_FUSED_MAX_CHARS sets the linear sort's gate at import;
+    the block stage's replay limit does not read it."""
     code = ("from csa_tpu_torch.index import engine; "
-            "print(engine.FUSED_MAX_CHARS)")
+            "print(engine.FUSED_MAX_CHARS, engine.REPLAY_MAX_CHARS)")
     env = {**os.environ, "PYTHONPATH": str(REPO),
            "CSA_TPU_FUSED_MAX_CHARS": "12345"}
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout
-    assert out.strip() == "12345"
+    assert out.split() == ["12345", "1605632"]
 
 
 def test_fused_route_profile_phase_and_plain_run(fresh_caches):
     """On the CPU the program runs eagerly through graphs.run (no graph,
-    no replay) inside the ``idx.fused`` phase."""
+    no capture, no replay) inside the ``idx.fused`` phase, and its one
+    download counts as the stage's one device read."""
     before = dict(graphs.STATS)
     PROFILER.reset()
     PROFILER.enabled = True
     try:
-        engine.rotation_final(_encoded("tiny/t1"), "cpu")
+        engine._rotation_final_fused(_encoded("tiny/t1"), "cpu")
         phases = dict(PROFILER.phases)
         counters = dict(PROFILER.counters)
     finally:
         PROFILER.enabled = False
         PROFILER.reset()
     assert "idx.fused" in phases
+    assert counters["idx.device_reads"] == 1
     assert "graph_replays" not in counters
+    assert "graph_captures" not in counters
     assert graphs.STATS == before
     with pytest.raises(ValueError):
         graphs.run(("x",), lambda t: t, (torch.zeros(1),), "meta")
