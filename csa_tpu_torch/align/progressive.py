@@ -647,6 +647,7 @@ def _fill_to_maps(prep, device=None, sc=None):
     if (device is not None and nrows and ncols
             and nrows * ncols >= config.run_config().device_min_cells):
         PROFILER.add("dp_device_dispatches", 1)
+        PROFILER.add("dp_device_cells", nrows * ncols)
         with PROFILER.phase("align.dp_fill"):
             path = profile.profile_path(row_codes, sv, i, top_row=top,
                                         edge_rowgap=erg, device=device, **sc)
@@ -717,6 +718,7 @@ def _giant_to_maps(p, mesh, sc: dict):
     path)."""
     PROFILER.add("dp_cells", len(p[0]) * len(p[1]))
     PROFILER.add("dp_device_dispatches", 1)
+    PROFILER.add("dp_device_cells", len(p[0]) * len(p[1]))
     with PROFILER.phase("align.dp_fill"):
         path = seqpar.dp_path_seqpar(p[0], p[1], p[2], mesh,
                                      top_row=p[3], edge_rowgap=p[4], **sc)
@@ -789,9 +791,10 @@ def progressive_dp_batched(gaps: List[List[np.ndarray]], *, device,
 def _batch_paths(batch, device, mesh, sc: dict):
     """One round's batch as one launch on ``device``, or split over the
     ranks of ``mesh`` (csa_tpu/align/progressive.py:824-832)."""
-    for _, p in batch:
-        PROFILER.add("dp_cells", len(p[0]) * len(p[1]))
+    cells = sum(len(p[0]) * len(p[1]) for _, p in batch)
+    PROFILER.add("dp_cells", cells)
     PROFILER.add("dp_device_dispatches", 1)
+    PROFILER.add("dp_device_cells", cells)
     items = [p for _, p in batch]
     with PROFILER.phase("align.dp_fill"):
         if mesh is None:

@@ -40,6 +40,7 @@ import torch
 from .. import kernels
 from ..parallel.sharded import (Ranks, join_streams, on_rank, rank_streams,
                                 unzip)
+from ..utils import PROFILER
 
 D_DIAG, D_LEFT, D_UP = 0, 1, 2
 GAP = 4
@@ -207,46 +208,52 @@ def _upload(items: Sequence[tuple], device, *, match: int = 1,
             mismatch: int = -1, indel: int = -1, doublegap: int = 0) -> dict:
     """A batch on ``device`` as the kernel takes it: every gap's exact
     rows and columns, concatenated, with the per-gap table, the ticket
-    order and the launch's scratch (allocated on the current stream)."""
-    device = torch.device(device)
-    rr = np.array([len(it[0]) for it in items], dtype=np.int64)
-    cc = np.array([len(it[1]) for it in items], dtype=np.int64)
-    iv = np.array([it[2] for it in items], dtype=np.int64)
-    meta, dirs_total, bnd_total, T = batch_layout(rr, cc)
-    meta[:, 2] = indel * iv
-    meta[:, 3] = [it[4] for it in items]
-    order = tile_order(rr, cc)
-    codes = np.concatenate(
-        [np.asarray(it[0]).astype(np.int8) for it in items])
-    sv = np.concatenate(
-        [np.asarray(it[1]).reshape(-1, 5).astype(np.int32) for it in items])
-    top = np.concatenate(
-        [np.asarray(it[3])[: C + 1].astype(np.int32)
-         for it, C in zip(items, cc)])
-    put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
-    # the concatenated columns as one-column gaps, each with its gap's i
-    colsub, cg, _ = _channels(put(sv)[:, None, :],
-                              put(np.repeat(iv, cc).astype(np.int32)),
-                              match=match, mismatch=mismatch, indel=indel,
-                              doublegap=doublegap)
-    G = len(items)
-    L = int((rr + cc).max())
-    empty = lambda n, dt: torch.empty(int(n), dtype=dt, device=device)  # noqa: E731
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return dict(
-        device=device, G=G, T=T, L=L,
-        workers=max(1, min(T, sms * WORKERS_PER_SM)),
-        strip=STRIP, tile_cols=TILE_COLS,
-        codes=put(codes),
-        colsub=colsub.to(torch.int32).reshape(-1, 5).contiguous(),
-        cg=cg.to(torch.int32).reshape(-1).contiguous(), top=put(top),
-        meta=put(meta), order=put(order),
-        ctrl=empty(1 + T, torch.int32),
-        bnd=empty(bnd_total, torch.int32),
-        dirs=empty(dirs_total, torch.uint8),
-        paths=torch.empty((G, L), dtype=torch.int8, device=device),
-        nsteps=empty(G, torch.int32),
-    )
+    order and the launch's scratch (allocated on the current stream).
+    Phase ``align.dp_upload``; counter ``dp_dirs_bytes``, the direction
+    store it allocates."""
+    with PROFILER.phase("align.dp_upload"):
+        device = torch.device(device)
+        rr = np.array([len(it[0]) for it in items], dtype=np.int64)
+        cc = np.array([len(it[1]) for it in items], dtype=np.int64)
+        iv = np.array([it[2] for it in items], dtype=np.int64)
+        meta, dirs_total, bnd_total, T = batch_layout(rr, cc)
+        PROFILER.add("dp_dirs_bytes", dirs_total)
+        meta[:, 2] = indel * iv
+        meta[:, 3] = [it[4] for it in items]
+        order = tile_order(rr, cc)
+        codes = np.concatenate(
+            [np.asarray(it[0]).astype(np.int8) for it in items])
+        sv = np.concatenate(
+            [np.asarray(it[1]).reshape(-1, 5).astype(np.int32)
+             for it in items])
+        top = np.concatenate(
+            [np.asarray(it[3])[: C + 1].astype(np.int32)
+             for it, C in zip(items, cc)])
+        put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+        # the concatenated columns as one-column gaps, each with its gap's i
+        colsub, cg, _ = _channels(put(sv)[:, None, :],
+                                  put(np.repeat(iv, cc).astype(np.int32)),
+                                  match=match, mismatch=mismatch, indel=indel,
+                                  doublegap=doublegap)
+        G = len(items)
+        L = int((rr + cc).max())
+        empty = lambda n, dt: torch.empty(  # noqa: E731
+            int(n), dtype=dt, device=device)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        return dict(
+            device=device, G=G, T=T, L=L,
+            workers=max(1, min(T, sms * WORKERS_PER_SM)),
+            strip=STRIP, tile_cols=TILE_COLS,
+            codes=put(codes),
+            colsub=colsub.to(torch.int32).reshape(-1, 5).contiguous(),
+            cg=cg.to(torch.int32).reshape(-1).contiguous(), top=put(top),
+            meta=put(meta), order=put(order),
+            ctrl=empty(1 + T, torch.int32),
+            bnd=empty(bnd_total, torch.int32),
+            dirs=empty(dirs_total, torch.uint8),
+            paths=torch.empty((G, L), dtype=torch.int8, device=device),
+            nsteps=empty(G, torch.int32),
+        )
 
 
 def _launch(b: dict):
@@ -281,9 +288,13 @@ def _launch_walk(b: dict):
 
 
 def _collect(paths: torch.Tensor, nsteps: torch.Tensor) -> List[np.ndarray]:
-    paths_h = paths.cpu().numpy()
-    n_h = nsteps.cpu().numpy()
-    return [paths_h[g, : int(n_h[g])].copy() for g in range(len(n_h))]
+    """The paths of launched batches on the host (phase
+    ``align.dp_collect``: the wait for the fill and walk, the download
+    and the split)."""
+    with PROFILER.phase("align.dp_collect"):
+        paths_h = paths.cpu().numpy()
+        n_h = nsteps.cpu().numpy()
+        return [paths_h[g, : int(n_h[g])].copy() for g in range(len(n_h))]
 
 
 def rank_chunks(n_items: int, n_ranks: int) -> List[slice]:

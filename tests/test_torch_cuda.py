@@ -479,6 +479,61 @@ def test_set3_merge_gate_above_every_merge_matches_default(cuda, tmp_path,
     assert out["default"][0] == (fix / "Set3-Rotated.fasta").read_bytes()
 
 
+@pytest.mark.cuda
+def test_gap_dp_upload_and_collect_are_spans_of_the_fill(cuda, monkeypatch):
+    """Profiled gap DP on the card with both gates at 0 and a batch cap
+    that sends each round's largest merge alone: every
+    ``align.dp_upload`` and ``align.dp_collect`` lies inside an
+    ``align.dp_fill``, one each a launch; ``dp_dirs_bytes`` is the
+    direction store of every gap launched and ``dp_device_cells`` their
+    cells; the strings are the host route's."""
+    from csa_tpu_torch import config
+    from csa_tpu_torch.align import progressive
+    from csa_tpu_torch.utils import PROFILER
+
+    rng = np.random.default_rng(5)
+    gaps = [[rng.integers(0, 4, size=int(n)).astype(np.int8)
+             for n in rng.integers(600, 900, size=4)] for _ in range(3)]
+    shapes = []
+    upload = profile._upload
+
+    def recorded(items, device, **kw):
+        shapes.extend((len(it[0]), len(it[1])) for it in items)
+        return upload(items, device, **kw)
+
+    monkeypatch.setattr(profile, "_upload", recorded)
+    # two of the first rounds' merges fit a batch, the third goes alone
+    monkeypatch.setattr(progressive, "BATCH_DIRS_BYTES",
+                        3 * profile.dirs_bytes(640, 640))
+    config.set_run_config(config.RunConfig(device_min_cells=0,
+                                           batch_min_cells=0))
+    PROFILER.reset()
+    PROFILER.enabled = True
+    try:
+        got = progressive.progressive_dp_batched(gaps, device=cuda)
+        spans = list(PROFILER.spans)
+        counters = dict(PROFILER.counters)
+    finally:
+        PROFILER.enabled = False
+        PROFILER.reset()
+        config.set_run_config(config.RunConfig())
+    inner = [s for s in spans
+             if s.name in ("align.dp_upload", "align.dp_collect")]
+    launches = counters["dp_device_dispatches"]
+    assert len(shapes) == 9 and 3 < launches < 9  # batches and giants
+    assert len(inner) == 2 * launches
+    for s in inner:
+        fill = spans[s.parent]
+        assert fill.name == "align.dp_fill"
+        assert fill.start <= s.start and s.end <= fill.end
+    assert counters["dp_dirs_bytes"] == sum(profile.dirs_bytes(r, c)
+                                            for r, c in shapes)
+    assert counters["dp_device_cells"] == sum(r * c for r, c in shapes)
+    for strings, want in zip(got, map(progressive.progressive_dp, gaps)):
+        for a, b in zip(strings, want):
+            np.testing.assert_array_equal(a, b)
+
+
 def _fixture_encoded(name):
     import io
     import pathlib

@@ -2,8 +2,9 @@
 with a parent and a job, self time and the root-only ``TOTAL``, the
 ``record_function`` ranges under ``torch.profiler``, the spans that
 ``CSA_TPU_TORCH_TRACE`` writes on the trace's clock, the start-up spans
-of a CLI process, the block stage's device-read counter, and the
-benchmark's readers of them (``perfbench/metrics``)."""
+of a CLI process, the block stage's device-read counter, the gap DP's
+device-cell counter, and the benchmark's readers of them
+(``perfbench/metrics``)."""
 
 import io
 import json
@@ -18,7 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from csa_tpu_torch import cli, utils
+from csa_tpu_torch import cli, config, utils
+from csa_tpu_torch.align import progressive, runner
+from csa_tpu_torch.dp import profile
 from csa_tpu_torch.index import engine
 from csa_tpu_torch.io import fasta as fio
 from csa_tpu_torch.utils import PROFILER, PhaseTimer
@@ -331,6 +334,20 @@ def test_the_phase_and_counter_readers_take_the_median_job():
         assert _reader(name)(_run([{"wall_s": 1.0, "phases": {}}])) is None
 
 
+@pytest.mark.parametrize("name,phase", [("gapdp.upload_ms",
+                                         "align.dp_upload"),
+                                        ("gapdp.collect_ms",
+                                         "align.dp_collect")])
+def test_the_gap_dp_readers_take_the_median_job(name, phase):
+    run = _run([{"wall_s": 1.0, "ok": True,
+                 "phases": {"align.dp_fill": 0.5, phase: 0.1 * scale}}
+                for scale in (3, 1, 2)])
+    assert _reader(name)(run) == pytest.approx(200)
+    # the parent's program has no such span: no number, no error
+    assert _reader(name)(_run([{"wall_s": 1.0,
+                                "phases": {"align.dp_fill": 0.5}}])) is None
+
+
 @pytest.mark.cuda
 def test_a_cli_trace_on_the_card_puts_start_up_before_the_kernels(tmp_path):
     """One Primates R job of a fresh CLI process under
@@ -368,3 +385,71 @@ def test_a_cli_trace_on_the_card_puts_start_up_before_the_kernels(tmp_path):
     assert all(s0 <= k["ts"] and k["ts"] + k["dur"] <= s1 for k in inside)
     spans = {e["name"] for e in events if e.get("cat") == "csa_span"}
     assert {"startup.imports", "cli.main"} <= spans
+
+
+# four records of Set3 (two of the Primates 16, two outgroups): three gaps
+SET3_SUBSET = ("NC_001643", "NC_001807", "NC_001323", "NC_001709")
+
+
+def _set3_subset_gaps(tmp_path, monkeypatch, seed):
+    """The gaps of a ``--backend native`` job on the records
+    ``SET3_SUBSET`` of Set3, turned by the benchmark's maker at ``seed``,
+    with the host route's results."""
+    maker = manifest.maker({"maker": "rotated_fasta"})
+    records = maker.read_records(str(FIX / "Set3.txt"))
+    src = tmp_path / "subset.fa"
+    src.write_text("".join(f">{n}\n{b}\n" for n, b in records
+                           if n in SET3_SUBSET))
+    maker.make({"file": str(src)}, seed, str(tmp_path / "set.txt"))
+    got = {}
+    host = runner._run_gaps_host
+
+    def kept(gaps):
+        got["gaps"], got["host"] = gaps, host(gaps)
+        return got["host"]
+
+    monkeypatch.setattr(runner, "_run_gaps_host", kept)
+    monkeypatch.chdir(tmp_path)
+    try:
+        assert cli.main(["set.txt", "--backend", "native"]) == 0
+    finally:
+        config.set_run_config(config.RunConfig())
+    return got["gaps"], got["host"]
+
+
+def test_the_device_route_counts_its_cells_on_the_cpu(tmp_path, monkeypatch):
+    """``progressive_dp_batched`` on the CPU (the plain fill) with both
+    gates at 0 counts in ``dp_device_cells`` the R x C of every merge it
+    sends down the device route, and aligns as the host route does.  The
+    subset's gaps of under 10k characters a sequence: the plain fill takes
+    seconds on them, and about 40 s on the third (16k rows)."""
+    gaps, host = _set3_subset_gaps(tmp_path, monkeypatch, 2**31 + 5)
+    keep = [i for i, g in enumerate(gaps) if max(map(len, g)) < 10_000]
+    assert len(gaps) == 3 and len(keep) == 2
+    sent = []
+    paths = profile.profile_paths
+
+    def recorded(items, device, **kw):
+        sent.extend(len(it[0]) * len(it[1]) for it in items)
+        return paths(items, device, **kw)
+
+    monkeypatch.setattr(profile, "profile_paths", recorded)
+    config.set_run_config(config.RunConfig(device_min_cells=0,
+                                           batch_min_cells=0))
+    PROFILER.reset()
+    PROFILER.enabled = True
+    try:
+        out = progressive.progressive_dp_batched([gaps[i] for i in keep],
+                                                 device="cpu")
+        counters = dict(PROFILER.counters)
+    finally:
+        PROFILER.enabled = False
+        PROFILER.reset()
+        config.set_run_config(config.RunConfig())
+    assert len(sent) == 6  # two gaps of four sequences: three merges each
+    assert counters["dp_device_cells"] == sum(sent) == counters["dp_cells"]
+    assert counters["dp_device_dispatches"] == 3  # a round a launch
+    for i, strings in zip(keep, out):
+        assert len(strings) == len(host[i])
+        for a, b in zip(strings, host[i]):
+            np.testing.assert_array_equal(a, b)
