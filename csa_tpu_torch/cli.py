@@ -41,7 +41,9 @@ the rotation and of the alignment phase:
 Every route writes the same output.  A route that runs on the card looks
 for it when it starts; without one, ``--device cuda`` exits non-zero
 (``auto`` too, when it resolves to ``device``): the CPU runs only when
-asked for with ``--device cpu``.  I, C, S and M are host tools.
+asked for with ``--device cpu``.  I, C, S and M are host tools; the
+plot (modes N and I) is drawn by the native host library on every
+route but ``numpy``.
 ``--coordinator HOST:PORT``, ``--num-processes N`` and ``--process-id
 p`` (or the ``CSA_TPU_*`` variables ``csa_tpu`` reads) run modes N, R
 and A as one of N processes (:mod:`csa_tpu_torch.parallel.distributed`):
@@ -442,8 +444,12 @@ def _run(args, mode: str) -> None:
 
         source = alignfile if alignfile else args.input
         out = output_filename(args.input, CIRCULARIMAGE_SUFFIX)
+        # the alignment's route (mode I has no input size: it loads none)
+        route = alignment if mode == "N" else resolve_routes(
+            args.backend, 0)[1]
         with PROFILER.phase("report.circular_plot"):
-            circular_plot.draw_circular_alignment_plot(source, out)
+            circular_plot.draw_circular_alignment_plot(source, out,
+                                                       backend=route)
 
     if mode in ("C", "S", "M"):
         from .tools import files as tools_files

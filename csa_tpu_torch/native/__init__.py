@@ -123,6 +123,14 @@ def _bind() -> Optional[ctypes.CDLL]:
         ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_void_p, ctypes.c_void_p,
     ]
+    lib.csa_circular_plot_raster.restype = ctypes.c_int32
+    lib.csa_circular_plot_raster.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
+    ]
     lib.csa_set_mt_threshold.restype = None
     lib.csa_set_mt_threshold.argtypes = [ctypes.c_int64]
     _lib = lib
@@ -364,6 +372,51 @@ def anchor_group(seq_of: np.ndarray, pos_of: np.ndarray, att: np.ndarray,
     )
     return (depths[:n], offsets[: n * k + 1], positions[: int(counts[2])],
             int(counts[0]))
+
+
+def circular_plot_raster(rows: np.ndarray, ring_x: np.ndarray,
+                         ring_y: np.ndarray, ring_offsets: np.ndarray,
+                         center: int, size: int, overlay_px: np.ndarray,
+                         overlay_ids: np.ndarray, background: int,
+                         ncounts: int):
+    """Native raster of the circular plot's color ids (numpy twin:
+    csa_tpu_torch/report/circular_plot.py::_raster_numpy).  ``rows`` is
+    the (numseqs, seqsize) alignment's bytes; ring ``j`` (sequence
+    ``j % numseqs``) has the points ``ring_x/ring_y[ring_offsets[j]:
+    ring_offsets[j + 1]]`` around ``(center, center)``; the overlay's
+    pixels (flat indices into the ``size`` x ``size`` image) take their
+    ids after the rings.  Returns ``(ids, counts)``, the (size, size)
+    int32 image and its int64 count of each id below ``ncounts``, or
+    None if no lib."""
+    lib = _load()
+    if lib is None:
+        return None
+    mat = np.ascontiguousarray(rows, dtype=np.uint8)
+    xs = np.ascontiguousarray(ring_x, dtype=np.int32)
+    ys = np.ascontiguousarray(ring_y, dtype=np.int32)
+    off = np.ascontiguousarray(ring_offsets, dtype=np.int64)
+    opx = np.ascontiguousarray(overlay_px, dtype=np.int64)
+    oid = np.ascontiguousarray(overlay_ids, dtype=np.int32)
+    numseqs, seqsize = mat.shape
+    nrings = len(off) - 1
+    if len(xs) != len(ys) or off[0] != 0 or off[-1] != len(xs) \
+            or (np.diff(off) <= 0).any() or nrings % max(numseqs, 1):
+        raise ValueError("ring offsets must cut the points into whole "
+                         "rings, numseqs of them a depth")
+    if len(opx) != len(oid) or (len(opx) and (
+            opx.min() < 0 or opx.max() >= size * size)):
+        raise ValueError("overlay pixels must lie inside the image")
+    ids = np.empty((size, size), dtype=np.int32)
+    counts = np.empty(ncounts, dtype=np.int64)
+    rc = lib.csa_circular_plot_raster(
+        mat.ctypes.data, numseqs, seqsize, xs.ctypes.data, ys.ctypes.data,
+        off.ctypes.data, nrings, int(center), int(center), int(size),
+        opx.ctypes.data, oid.ctypes.data, len(opx), int(background),
+        ids.ctypes.data, counts.ctypes.data, int(ncounts),
+    )
+    if rc != 0:
+        raise ValueError("a color id is not below ncounts")
+    return ids, counts
 
 
 def pairwise_nw(a: np.ndarray, b: np.ndarray):

@@ -15,6 +15,7 @@
 #include <algorithm>
 #include <atomic>
 #include <chrono>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -1448,6 +1449,113 @@ int32_t csa_linear_index(const int32_t* s, int32_t total, int32_t sigma,
       }
       if (h > 0) --h;
     }
+  }
+  return 0;
+}
+
+// Circular conservation plot as a raster of color ids (the numpy twin is
+// csa_tpu_torch/report/circular_plot.py::_raster_numpy, exact).  rows:
+// numseqs x seqsize aligned bytes, upper-cased here; a column's -ACGT
+// tallies give each (seq, col) its conservation (the tally of its own
+// base) and gap flag, prefix-summed per sequence.  Ring j (k outer,
+// sequence j % numseqs inner) has the points ring_x/ring_y[ring_off[j],
+// ring_off[j + 1]), offsets from (xc, yc); point p aggregates the columns
+// [floor(p * seqsize / n), floor((p + 1) * seqsize / n)) in float64 as
+// the reference does, and takes id conscolor * 256 + gapcolor (below
+// 65,536).  A ring paints its points, then each point's py + 1
+// neighbour (clipped to the last row), later writes winning; then the
+// overlay (flat pixel, id) in order.  ids: size x size, background
+// first.  counts[id] counts the final image's pixels of each id.
+// Returns 0, or -1 (nothing drawn) when ncounts does not cover the ring
+// ids, the background and the overlay's ids.  The scratch (tallies,
+// prefix sums) stays with the thread, so a warm process reuses it.
+int32_t csa_circular_plot_raster(const uint8_t* rows, int32_t numseqs,
+                                 int32_t seqsize, const int32_t* ring_x,
+                                 const int32_t* ring_y,
+                                 const int64_t* ring_off, int32_t nrings,
+                                 int32_t xc, int32_t yc, int32_t size,
+                                 const int64_t* over_px,
+                                 const int32_t* over_id, int64_t nover,
+                                 int32_t background, int32_t* ids,
+                                 int64_t* counts, int32_t ncounts) {
+  if (ncounts < 65536 || background < 0 || background >= ncounts) return -1;
+  for (int64_t t = 0; t < nover; ++t)
+    if (over_id[t] < 0 || over_id[t] >= ncounts) return -1;
+  int8_t code[256];
+  std::fill(code, code + 256, int8_t(-1));
+  code[static_cast<uint8_t>('-')] = 0;
+  code[static_cast<uint8_t>('A')] = code[static_cast<uint8_t>('a')] = 1;
+  code[static_cast<uint8_t>('C')] = code[static_cast<uint8_t>('c')] = 2;
+  code[static_cast<uint8_t>('G')] = code[static_cast<uint8_t>('g')] = 3;
+  code[static_cast<uint8_t>('T')] = code[static_cast<uint8_t>('t')] = 4;
+  thread_local std::vector<int32_t> tally, pid;
+  // one sequence's prefix sums: sums[2 c] conservation, sums[2 c + 1]
+  // gaps, over the columns [0, c)
+  thread_local std::vector<int64_t> sums;
+  const int64_t cols = seqsize;
+  tally.assign(static_cast<size_t>(cols) * 5, 0);
+  for (int32_t s = 0; s < numseqs; ++s) {
+    const uint8_t* row = rows + s * cols;
+    for (int64_t c = 0; c < cols; ++c) {
+      const int8_t k = code[row[c]];
+      if (k >= 0) ++tally[c * 5 + k];
+    }
+  }
+  // every ring point's id, a sequence at a time (its sums stay in cache)
+  sums.resize(static_cast<size_t>(cols + 1) * 2);
+  pid.resize(ring_off[nrings]);
+  for (int32_t s = 0; s < numseqs; ++s) {
+    const uint8_t* row = rows + s * cols;
+    int64_t* sc = sums.data();
+    int64_t cons = 0, gaps = 0;
+    sc[0] = sc[1] = 0;
+    for (int64_t c = 0; c < cols; ++c) {
+      const int8_t k = code[row[c]];
+      cons += k >= 1 ? tally[c * 5 + k] : 0;
+      gaps += k == 0;
+      sc[2 * c + 2] = cons;
+      sc[2 * c + 3] = gaps;
+    }
+    for (int32_t j = s; j < nrings; j += numseqs) {
+      const int64_t lo = ring_off[j], n = ring_off[j + 1] - lo;
+      const double ppp = double(cols) / double(n);
+      int64_t start = 0;
+      for (int64_t p = 0; p < n; ++p) {
+        int64_t end = static_cast<int64_t>(std::floor(double(p + 1) * ppp));
+        if (end > cols) end = cols;
+        const int64_t w = end - start > 1 ? end - start : 1;
+        const int64_t cc = static_cast<int64_t>(
+            std::floor(double((sc[2 * end] - sc[2 * start]) * 255) /
+                       double(int64_t(numseqs) * w)));
+        const int64_t gc = static_cast<int64_t>(std::floor(
+            double((sc[2 * end + 1] - sc[2 * start + 1]) * 255) / double(w)));
+        pid[lo + p] = static_cast<int32_t>(cc * 256 + gc);
+        start = end;
+      }
+    }
+  }
+  const int64_t pixels = int64_t(size) * size;
+  std::fill(ids, ids + pixels, background);
+  for (int32_t j = 0; j < nrings; ++j) {
+    for (int pass = 0; pass < 2; ++pass)
+      for (int64_t q = ring_off[j]; q < ring_off[j + 1]; ++q) {
+        const int32_t px = xc + ring_x[q];
+        int32_t py = yc + ring_y[q];
+        if (px < 0 || px >= size || py < 0 || py >= size) continue;
+        if (pass == 1 && py + 1 < size) ++py;
+        ids[int64_t(py) * size + px] = pid[q];
+      }
+  }
+  for (int64_t t = 0; t < nover; ++t) ids[over_px[t]] = over_id[t];
+  // counted a run of equal ids at a time: most of the image is runs of
+  // background
+  std::fill(counts, counts + ncounts, int64_t(0));
+  for (int64_t q = 0; q < pixels;) {
+    const int32_t v = ids[q];
+    int64_t e = q + 1;
+    while (e < pixels && ids[e] == v) ++e;
+    counts[v] += e - q;
+    q = e;
   }
   return 0;
 }

@@ -4,7 +4,8 @@ Own-design equivalent of the drawing layer in reference source/graphics.c
 (lines/rects/text on a palette bitmap).  Uses a numpy RGB buffer and a
 compact 3x5 pixel font covering the characters the reports need.  Lines
 and text are computed as whole pixel arrays (:func:`line_pixels`,
-:func:`text_pixels`), which the block map's indexed raster shares.
+:func:`text_pixels`), which the block map's and the circular plot's
+indexed rasters share.
 """
 
 from __future__ import annotations
@@ -124,8 +125,3 @@ class Canvas:
     @staticmethod
     def text_width(s: str) -> int:
         return 4 * len(s)
-
-    def save_bmp(self, path: str) -> None:
-        from .bmp import write_bmp
-
-        write_bmp(path, self.img)
